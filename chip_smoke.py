@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with CUDA, ``nvcc`` and one
+card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
+``build/kernels/``), then:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. holds each kernel against its plain PyTorch version on the card:
+   ``wave_peel`` bit-identical on all six StepResult fields over a seeded
+   fuzz sweep, ``segdeg`` exact on 0/1 values and within 1e-5 on floats,
+   the composite step with segdeg closures equal to the fused step, and
+   a small graph's cores equal to the brute-force oracle;
+3. drives the main path at the published shape of SNAP sx-mathoverflow
+   (24,818 vertices, 506,550 temporal edges, 2,350 days): one
+   ``query_batch`` of 8 queries (cold, then warm), each query again
+   through ``query`` in wave and serial mode, and the batch through the
+   composite engine; all must agree.  Each path runs with the launch
+   counters set to 0 just before it and read just after, and its counts
+   must show it ran through its kernel and no other.  One full-size wave
+   step must equal the plain step bit for bit;
+4. profiles one more ``query_batch``: device time by kernel and the
+   device's busy share;
+5. times each kernel at the main path's shapes beside its plain version,
+   its roofline bound and (segdeg) one PyTorch library call, and prints
+   them as one JSON line, then the ``{"ok": true, ...}`` line last.
+
+Any failed check raises, and the script exits non-zero with no result
+line; it also exits non-zero when no CUDA device is present.  It never
+imports JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+FUZZ_SEEDS = range(6)
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+# The kernels only compare and add int32.  H100 SXM INT32 rate outside
+# the tensor cores: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------- timing
+def time_ms(fn, reps: int, setup=None) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, from CUDA events
+    around each run; ``setup`` runs before each, outside the events."""
+    import torch
+
+    fn() if setup is None else (setup(), fn())          # warm-up
+    pairs = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the INT32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------ phase 2: kernels
+def random_temporal_graph(rng):
+    """Same draws as tests/test_kernels.py::_random_temporal_graph."""
+    import numpy as np
+    from repro_torch.core.graph import TemporalGraph
+
+    v = int(rng.integers(3, 60))
+    e = int(rng.integers(5, 400))
+    tmax = int(rng.integers(4, 60))
+    u = rng.integers(0, v, e)
+    w = rng.integers(0, v, e)
+    keep = u != w
+    u, w = u[keep], w[keep]
+    if u.size == 0:
+        u, w = np.array([0]), np.array([v - 1])
+    t = rng.integers(0, tmax, u.size)
+    return TemporalGraph.from_edges(u, w, t, num_vertices=v), tmax
+
+
+def fuzz_case(seed: int, capacity_padding: bool, dev):
+    """One case of the fused-vs-composite sweep of tests/test_kernels.py,
+    drawn in the same order: (tel, V, alive, ts, te, k, h) on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import pow2_capacity
+
+    rng = np.random.default_rng(seed)
+    g, tmax = random_temporal_graph(rng)
+    if capacity_padding:
+        nv = pow2_capacity(g.num_vertices)
+        tel = g.device_tel(edge_capacity=pow2_capacity(g.num_edges),
+                           pair_capacity=pow2_capacity(g.num_pairs),
+                           vertex_capacity=nv, device=dev)
+    else:
+        nv = g.num_vertices
+        tel = g.device_tel(device=dev)
+    rng.choice([4, 8])                   # the TPU kernel's w_tile draw
+    W = int(rng.integers(1, 12))
+    ts = rng.integers(0, tmax, W).astype(np.int32)
+    te = (ts + rng.integers(0, tmax, W)).astype(np.int32)
+    empty = rng.random(W) < 0.25
+    ts[empty], te[empty] = 0, -1
+    k = rng.integers(1, 5, W).astype(np.int32)
+    h = rng.integers(1, 3, W).astype(np.int32)
+    if rng.random() < 0.5:
+        alive = rng.random((W, nv)) < 0.8
+    else:
+        alive = np.ones((W, nv), dtype=bool)
+    t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+    return tel, nv, t(alive), t(ts), t(te), t(k), t(h)
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b| over all StepResult fields (0 when bit-identical)."""
+    import torch
+
+    return max(float((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+               if x.numel() else 0.0 for x, y in zip(a, b))
+
+
+def assert_steps_equal(got, want, ctx: str) -> None:
+    import torch
+
+    for name, x, y in zip(got._fields, got, want):
+        check(x.dtype == y.dtype and tuple(x.shape) == tuple(y.shape)
+              and torch.equal(x, y), f"{ctx}: {name} differs")
+
+
+def phase_kernels(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import TCQEngine, brute_force_query
+    from repro_torch.core.wave import make_composite_step, make_wave_step_fn
+    from repro_torch.graphs import planted_cores
+    from repro_torch.kernels.segdeg.ops import banded_segsum, banded_segsum_ref
+
+    errs = {"wave_peel": 0.0, "segdeg": 0.0}
+    for padded in (False, True):
+        for s in FUZZ_SEEDS:
+            seed = (2000 if padded else 1000) + s
+            tel, nv, alive, *lanes = fuzz_case(seed, padded, dev)
+            fused = make_wave_step_fn(tel, nv, use_kernel=True)
+            comp = make_wave_step_fn(tel, nv, use_kernel=False)
+            plain = make_composite_step(tel, nv)
+            rf = fused(alive, *lanes)
+            rp = plain(alive, *lanes)
+            rc = comp(alive, *lanes)
+            torch.cuda.synchronize()
+            ctx = f"seed {seed}"
+            assert_steps_equal(rf, rp, f"wave_peel vs plain, {ctx}")
+            assert_steps_equal(rc, rf, f"composite(segdeg) vs fused, {ctx}")
+            errs["wave_peel"] = max(errs["wave_peel"], max_err(rf, rp))
+    log(f"wave_peel: bit-identical to the plain step on "
+        f"{2 * len(FUZZ_SEEDS)} fuzz cases; composite with segdeg "
+        "closures equal to the fused step")
+
+    # 0/1 values (all the wave step feeds it) must be exact; floats may
+    # differ from index_add_ by summation order: allclose rtol=atol=1e-5
+    rng = np.random.default_rng(0)
+    float_err = 0.0
+    for n, s, q in [(1, 1, 1), (100, 7, 3), (1000, 300, 17), (513, 129, 129),
+                    (4096, 1024, 64), (2048, 4, 8), (3000, 50, 5)]:
+        seg = torch.from_numpy(np.sort(rng.integers(0, s + 2, n))
+                               .astype(np.int32)).to(dev)  # ids >= s drop
+        for vals in (rng.random((n, q)) < 0.5, rng.normal(0, 1, (n, q))):
+            v = torch.from_numpy(vals.astype(np.float32)).to(dev)
+            got, want = banded_segsum(v, seg, s), banded_segsum_ref(v, seg, s)
+            err = float((got - want).abs().max())
+            if vals.dtype == bool:
+                check(torch.equal(got, want), f"segdeg 0/1 ({n},{s},{q})")
+                errs["segdeg"] = max(errs["segdeg"], err)
+            else:
+                check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                      f"segdeg float ({n},{s},{q}): {err}")
+                float_err = max(float_err, err)
+    log(f"segdeg: exact on 0/1 values; on floats max |diff| {float_err:.3g} "
+        "within allclose rtol=atol=1e-5")
+
+    g = planted_cores(seed=9)
+    oracle = brute_force_query(g, 3, 1, 40)
+    for mode in ("wave", "serial"):
+        got = TCQEngine(g).query(3, 1, 40, mode=mode).by_tti()
+        check(got.keys() == oracle.keys(), f"oracle keys ({mode})")
+        for key, c in got.items():
+            check(set(c.vertices.tolist()) == oracle[key]["vertices"]
+                  and c.n_edges == oracle[key]["n_edges"],
+                  f"oracle core {key} ({mode})")
+    log(f"planted_cores: {len(oracle)} cores equal to the brute-force "
+        "oracle in wave and serial mode")
+    return errs
+
+
+# ---------------------------------------------------- phase 3: main path
+def same_cores(a, b, ctx: str) -> None:
+    import numpy as np
+
+    ba, bb = a.by_tti(), b.by_tti()
+    check(ba.keys() == bb.keys(), f"{ctx}: {len(ba)} vs {len(bb)} cores")
+    for key, ca in ba.items():
+        cb = bb[key]
+        check(np.array_equal(ca.vertices, cb.vertices)
+              and ca.n_edges == cb.n_edges, f"{ctx}: core {key} differs")
+
+
+def pick_queries(eng, g, n: int = 8, span_uts: int = 64, seed: int = 11,
+                 max_results: int = 200):
+    """Seeded windows of ``span_uts`` unique timestamps, each with the
+    smallest k in a ladder whose query returns 1..max_results cores."""
+    import numpy as np
+
+    uts = g.unique_ts
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(4 * n):
+        if len(out) == n:
+            break
+        i = int(rng.integers(0, uts.size - span_uts))
+        ts, te = int(uts[i]), int(uts[i + span_uts - 1])
+        for k in (2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32, 48, 64):
+            m = len(eng.query(k, ts, te, mode="wave", wave="auto"))
+            if m == 0:
+                break
+            if m <= max_results:
+                out.append({"k": k, "ts": ts, "te": te, "cores": m})
+                break
+    check(len(out) == n, f"found {len(out)} of {n} valid queries")
+    return out
+
+
+def phase_main(dev) -> dict:
+    import torch
+    from repro_torch.core import TCQEngine
+    from repro_torch.graphs import powerlaw_temporal
+    from repro_torch.kernels.segdeg.ops import banded_segsum
+    from repro_torch.kernels.wave_peel.ops import wave_peel
+
+    t0 = time.perf_counter()
+    g = powerlaw_temporal(num_vertices=24_818, num_edges=506_550,
+                          time_span=2_350, burst_periods=14, seed=11)
+    log(f"graph: |V|={g.num_vertices} |E|={g.num_edges} |P|={g.num_pairs} "
+        f"unique t={g.unique_ts.size} built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    eng = TCQEngine(g)
+    check(eng.device.type == "cuda", f"engine on {eng.device}, not CUDA")
+    t0 = time.perf_counter()
+    reqs = pick_queries(eng, g)
+    log(f"queries ({time.perf_counter() - t0:.1f}s to pick): "
+        + json.dumps(reqs))
+    comp_eng = TCQEngine(g, use_kernel=False)
+
+    def run_path(fn):
+        """Drive one path with both launch counters set to 0 just before
+        it and read just after: (result, wall s, {kernel: launches})."""
+        torch.cuda.synchronize()
+        wave_peel.launches = banded_segsum.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {"wave_peel": wave_peel.launches,
+                           "segdeg": banded_segsum.launches}
+
+    # the first batch also builds the union-window TEL (cold); the second
+    # reuses it from the engine's window LRU (warm)
+    batch, cold_s, n_cold = run_path(lambda: eng.query_batch(reqs))
+    batch2, warm_s, n_warm = run_path(lambda: eng.query_batch(reqs))
+    waves, wave_s, n_wave = run_path(lambda: [
+        eng.query(r["k"], r["ts"], r["te"], mode="wave") for r in reqs])
+    serials, serial_s, n_serial = run_path(lambda: [
+        eng.query(r["k"], r["ts"], r["te"], mode="serial") for r in reqs])
+    comp, comp_s, n_comp = run_path(lambda: comp_eng.query_batch(reqs))
+    by_path = {"query_batch_cold": n_cold, "query_batch_warm": n_warm,
+               "wave": n_wave, "serial": n_serial, "composite_batch": n_comp}
+
+    for i, r in enumerate(reqs):
+        check(len(batch[i]) == r["cores"], f"query {i}: core count moved")
+        same_cores(batch2[i], batch[i], f"query {i} warm vs cold batch")
+        same_cores(waves[i], batch[i], f"query {i} wave vs batch")
+        same_cores(serials[i], batch[i], f"query {i} serial vs batch")
+        same_cores(comp[i], batch[i], f"query {i} composite vs batch")
+
+    def expect(path: str, kernel: str, ok, want: str) -> None:
+        n = by_path[path][kernel]
+        check(ok(n), f"{path}: {kernel} launched {n} times, want {want}")
+
+    for path, res in (("query_batch_cold", batch),
+                      ("query_batch_warm", batch2)):
+        steps = res[0].stats.device_steps
+        expect(path, "wave_peel", lambda n: n >= steps, f">= {steps} steps")
+        expect(path, "segdeg", lambda n: n == 0, "0")
+    steps = sum(w.stats.device_steps for w in waves)
+    expect("wave", "wave_peel", lambda n: n >= steps, f">= {steps} steps")
+    expect("wave", "segdeg", lambda n: n == 0, "0")
+    for kernel in ("wave_peel", "segdeg"):
+        expect("serial", kernel, lambda n: n == 0, "0")
+    iters = comp[0].stats.peel_iters
+    expect("composite_batch", "segdeg", lambda n: n >= 2 * iters,
+           f">= 2 x {iters} peel iterations")
+    expect("composite_batch", "wave_peel", lambda n: n == 0, "0")
+
+    st = batch[0].stats
+    log(f"main path: {len(reqs)} queries, "
+        f"{sum(len(b) for b in batch)} cores, all equal across query_batch "
+        "(cold and warm), wave, serial and the composite batch")
+    log(f"query_batch: cold {cold_s:.3f}s wall ({len(reqs) / cold_s:.2f} "
+        f"queries/s), warm {warm_s:.3f}s ({len(reqs) / warm_s:.2f} "
+        f"queries/s); {st.device_steps} steps, {st.occupancy:.2f} mean "
+        f"occupied lanes, {st.peel_iters} peel iterations, window edges "
+        f"{st.window_edges}")
+    log(f"looped wave: {wave_s:.3f}s ({steps} steps); looped serial: "
+        f"{serial_s:.3f}s; composite batch: {comp_s:.3f}s "
+        f"({iters} peel iterations)")
+    log(f"launches by path: {json.dumps(by_path)}")
+    return {"g": g, "eng": eng, "reqs": reqs, "by_path": by_path}
+
+
+# ------------------------------------------ phase 4: where the time goes
+def phase_profile(main: dict) -> None:
+    """One more ``query_batch`` under ``torch.profiler``: device time by
+    kernel and the device's busy share of the batch's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        main["eng"].query_batch(main["reqs"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    if not rows:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    log(f"profile of query_batch: wall {wall_ms:.1f} ms under the profiler, "
+        f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
+    for name, ms, count in rows[:6]:
+        log(f"  {ms:9.2f} ms  {count:5d} x  {name[:90]}")
+
+
+# ---------------------------------------- phase 5: full-size step + timing
+def phase_timing(dev, main: dict, errs: dict) -> list:
+    import numpy as np
+    import torch
+    from repro_torch.core.scheduler import autotune_wave
+    from repro_torch.core.wave import make_composite_step, make_wave_step_fn
+    from repro_torch.kernels.segdeg.ops import banded_segsum, banded_segsum_ref
+    from repro_torch.kernels.wave_peel.ops import fused_step_cost, wave_peel
+
+    eng, reqs = main["eng"], main["reqs"]
+    lo = min(r["ts"] for r in reqs)
+    hi = max(r["te"] for r in reqs)
+    wt = eng._window_tel(lo, hi)                # the batch's union TEL
+    tel, nv = wt.tel, wt.num_vertices
+    W = autotune_wave(nv, wt.window_edges, num_queries=len(reqs))
+    pick = [reqs[i % len(reqs)] for i in range(W)]
+    lanes = [torch.tensor([r[f] for r in pick], dtype=torch.int32,
+                          device=dev) for f in ("ts", "te", "k")]
+    lanes.append(torch.ones(W, dtype=torch.int32, device=dev))
+    alive0 = torch.ones((W, nv), dtype=torch.bool, device=dev)
+
+    fused = make_wave_step_fn(tel, nv, use_kernel=True)
+    plain = make_composite_step(tel, nv)
+    rf, rp = fused(alive0, *lanes), plain(alive0, *lanes)
+    torch.cuda.synchronize()
+    assert_steps_equal(rf, rp, "full-size wave step vs plain")
+    errs["wave_peel"] = max(errs["wave_peel"], max_err(rf, rp))
+    log(f"full-size step (W={W}, E={tel.t.shape[0]}, P={tel.num_pairs}, "
+        f"V={nv}, iters={int(rf.iters)}): bit-identical to the plain step")
+
+    buf = alive0.clone()
+    refill = lambda: buf.copy_(alive0)          # noqa: E731
+    *_, lane_iters = wave_peel(tel, fused.bands, buf, *lanes)
+    refill()
+    peel_ms = time_ms(lambda: wave_peel(tel, fused.bands, buf, *lanes), 20,
+                      setup=refill)
+    plain_ms = time_ms(lambda: plain(alive0, *lanes), 3)
+    cost = fused_step_cost(tel.t.shape[0], tel.num_pairs,
+                           tel.hp_src.shape[0], nv, lane_iters.tolist())
+    peel_bound, peel_by = bound(cost["bytes"], cost["ops"])
+
+    # segdeg at the composite's first pair-level reduction of this step
+    win = (tel.t[None, :] >= lanes[0][:, None]) & \
+        (tel.t[None, :] <= lanes[1][:, None])
+    vals = (win & alive0[:, tel.src] & alive0[:, tel.dst]).T.to(
+        torch.float32).contiguous()
+    seg, S = tel.pair_id, tel.num_pairs
+    got, want = banded_segsum(vals, seg, S), banded_segsum_ref(vals, seg, S)
+    check(torch.equal(got, want), "segdeg at the main path's shape")
+    errs["segdeg"] = max(errs["segdeg"], float((got - want).abs().max()))
+    seg_ms = time_ms(lambda: banded_segsum(vals, seg, S), 50)
+    seg_plain_ms = time_ms(lambda: banded_segsum_ref(vals, seg, S), 50)
+    clamped = seg.clamp(max=S)
+    sink = torch.zeros((S + 1, W), dtype=torch.float32, device=dev)
+    lib_ms = time_ms(lambda: sink.index_add_(0, clamped, vals), 50)
+    n = vals.shape[0]
+    seg_bound, seg_by = bound(4 * n * W + 4 * n + 4 * S * W, n * W)
+    log(f"segdeg timed at values [{n}, {W}] -> [{S}, {W}]")
+
+    def launches(kernel: str) -> dict:
+        """``launches`` sums the per-path counts in ``launches_by_path``."""
+        per = {p: n[kernel] for p, n in main["by_path"].items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
+
+    return [
+        {"name": "wave_peel", "route": "cuda",
+         "source": "src/repro_torch/kernels/wave_peel/csrc/wave_peel.cu",
+         "replaces": "src/repro/kernels/wave_peel/kernel.py:179",
+         **launches("wave_peel"),
+         "max_abs_err": errs["wave_peel"], "ms": peel_ms,
+         "plain_ms": plain_ms, "bound_ms": peel_bound, "bound_by": peel_by,
+         "library_ms": None},
+        {"name": "segdeg", "route": "cuda",
+         "source": "src/repro_torch/kernels/segdeg/csrc/segdeg.cu",
+         "replaces": "src/repro/kernels/segdeg/kernel.py:109",
+         **launches("segdeg"), "max_abs_err": errs["segdeg"],
+         "ms": seg_ms, "plain_ms": seg_plain_ms, "bound_ms": seg_bound,
+         "bound_by": seg_by, "library_ms": lib_ms},
+    ]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    from repro_torch.kernels._build import library, library_path
+
+    t0 = time.perf_counter()
+    library()
+    log(f"kernels built in {time.perf_counter() - t0:.1f}s: "
+        f"{library_path().relative_to(ROOT)}")
+
+    errs = phase_kernels(dev)
+    main_run = phase_main(dev)
+    phase_profile(main_run)
+    kernels = phase_timing(dev, main_run, errs)
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

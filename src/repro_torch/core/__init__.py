@@ -1,0 +1,26 @@
+"""The paper's contribution, scalable time-range k-core queries (TCQ), on
+PyTorch: the port of ``repro.core`` for the NVIDIA H100.
+
+Public API:
+  TemporalGraph        — host-side ArrayTEL (build / epoch-versioned
+                         incremental append / ``from_state`` /
+                         ``device_tel`` to a torch device)
+  TCQEngine            — query engine for one graph, on CUDA by default
+  temporal_kcore_query — one-shot convenience wrapper
+  tcd / tcd_batch      — the TCD operation (truncate + frontier peel + TTI)
+  brute_force_query    — oracle
+"""
+
+from repro_torch.core.engine import WavePipeline  # noqa: F401
+from repro_torch.core.graph import (DeviceTEL, GraphIngestError,  # noqa: F401
+                                    TemporalGraph)
+from repro_torch.core.oracle import brute_force_query, peel_window  # noqa: F401
+from repro_torch.core.otcd import TCQEngine, temporal_kcore_query  # noqa: F401
+from repro_torch.core.results import (CoreResult, QueryStats,  # noqa: F401
+                                      TCQResult)
+from repro_torch.core.scheduler import (EmptyStaircase, QueryState,  # noqa: F401
+                                        autotune_wave)
+from repro_torch.core.tcd import TCDResult, coreness, tcd, tcd_batch  # noqa: F401
+from repro_torch.core.wave import (StepResult, make_oracle_step_fn,  # noqa: F401
+                                   make_wave_step_fn, pack_alive_u32,
+                                   unpack_alive_u32)

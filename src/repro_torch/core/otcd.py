@@ -1,0 +1,476 @@
+"""TCD / OTCD query scheduling (paper §3–§4) over the device engines
+(PyTorch port of ``repro.core.otcd``).
+
+The schedule bookkeeping (which (ts, te) cells remain, per the three
+pruning rules) is sequential, tiny and lives on the host
+(``core/scheduler.py``).  Enumeration is over *unique* timestamps inside
+[Ts, Te]; all modes peel against a *windowed* TEL
+(:meth:`TCQEngine._window_tel`, an LRU-cached, power-of-two-bucketed
+truncation), so per-cell work scales with the query window, not |E|.
+
+Two execution modes share that schedule:
+
+* ``serial`` — paper-faithful: one cell per ``tcd.tcd`` call, decremental
+  warm starts along each row (Theorem 1), one host read of the cell's
+  edge count and TTI per cell.
+* ``wave`` — the device-resident lane pool (``engine.WavePipeline``): one
+  wave step per batch of schedule cells with per-lane (ts, te, k, h), the
+  fused wave-peel CUDA kernel on the card by default.
+
+**Streaming.**  ``update_graph`` installs a new immutable snapshot under a
+fresh epoch and refreshes the device TEL inside power-of-two capacity
+classes.  ``_window_tel`` is keyed by ``(epoch, Ts, Te)`` and each entry
+pins its TEL and its wave step, so a graph update can never serve a stale
+truncation.
+
+The engine runs on the card unless told otherwise: ``TCQEngine(graph)``
+resolves to CUDA and raises when there is none.  ``device="cpu"`` runs the
+plain PyTorch versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict, defaultdict
+from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import WavePipeline
+from repro_torch.core.graph import DeviceTEL, TemporalGraph, pow2_capacity
+from repro_torch.core.intervals import IntervalSet
+from repro_torch.core.results import CoreResult, QueryStats, TCQResult
+from repro_torch.core.scheduler import QueryState, autotune_wave
+from repro_torch.core.tcd import tcd
+from repro_torch.core.wave import make_wave_step_fn
+from repro_torch.kernels.segdeg.ops import make_banded_segsum
+
+_I32_MIN = np.iinfo(np.int32).min
+_WINDOW_CACHE_MAX = 64
+_EPOCH_AUX_MAX = 8          # snapshot pair-table LRU (epochs still in flight)
+
+# constructor options of the JAX engine not ported yet -> ROADMAP item
+_NOT_PORTED = {"mesh": "A11", "combine": "A11", "cache": "A7",
+               "resilience": "A8"}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: CUDA unless the caller names another.  Raises
+    when CUDA is asked for (or defaulted to) and there is none — the port
+    never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "TCQEngine runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain versions")
+    return dev
+
+
+class WindowTEL(NamedTuple):
+    """One window-truncated TEL plus everything needed to peel it."""
+
+    tel: DeviceTEL
+    seg_pair: object         # edge->pair segsum closure for this TEL
+    seg_vert: object         # halfpair->vertex segsum closure
+    num_vertices: int        # device vertex width (capacity, >= live V)
+    window_edges: int        # live (non-sentinel) edges inside the window
+    step_fn: object = None   # pinned wave step (make_wave_step_fn closure)
+
+
+class _EpochAux(NamedTuple):
+    """Per-epoch pair-table device tensors (capacity padded)."""
+
+    pair_u: torch.Tensor
+    pair_v: torch.Tensor
+    hp_src: torch.Tensor
+    hp_pair: torch.Tensor
+    pair_cap: int
+    v_cap: int
+
+
+class TCQEngine:
+    """Holds the device TEL for one temporal graph and answers TCQs on it.
+
+    ``device`` defaults to CUDA (raising without it).  ``use_kernel``
+    selects the wave step: True the fused wave-peel kernel, False the
+    composite lowering (torch gathers + the segdeg kernel), None (default)
+    the fused kernel on CUDA.  On the CPU both run plain PyTorch.
+
+    ``num_vertices`` is the *device* vertex width (a capacity >= the live
+    vertex count once the graph has grown); padded vertices have no
+    incident edges, peel out on the first fixpoint iteration for any
+    k >= 1, and never appear in results.
+    """
+
+    def __init__(self, graph: TemporalGraph, *, device=None,
+                 use_kernel: Optional[bool] = None, mesh=None,
+                 combine=None, cache=None, resilience=None):
+        for name, val in (("mesh", mesh), ("combine", combine),
+                          ("cache", cache), ("resilience", resilience)):
+            if val is not None and val is not False:
+                raise NotImplementedError(
+                    f"TCQEngine({name}=...) is not ported to the PyTorch "
+                    f"engine yet (ROADMAP {_NOT_PORTED[name]})")
+        self.device = resolve_device(device)
+        self._use_kernel = (self.device.type == "cuda"
+                            if use_kernel is None else bool(use_kernel))
+        self.epoch = 0
+        # (epoch, Ts, Te) -> WindowTEL, LRU
+        self._win_cache: "OrderedDict[Tuple[int, int, int], WindowTEL]" = \
+            OrderedDict()
+        self._win_hits = 0
+        self._win_misses = 0
+        self._win_evictions = 0
+        # epoch -> _EpochAux, LRU (snapshots with queries still in flight)
+        self._epoch_aux: "OrderedDict[int, _EpochAux]" = OrderedDict()
+        self._install(graph, initial=True)
+
+    # ------------------------------------------------------------- streaming
+    def _install(self, graph: TemporalGraph, initial: bool) -> None:
+        """(Re)build the device TEL inside the engine's capacity classes:
+        exact at first, then the next power of two once an append
+        outgrows a capacity."""
+        if initial:
+            self._edge_cap = graph.num_edges
+            self._pair_cap = graph.num_pairs
+            self._v_cap = graph.num_vertices
+            grew_verts = True
+        else:
+            grew_verts = graph.num_vertices > self._v_cap
+            if graph.num_edges > self._edge_cap:
+                self._edge_cap = pow2_capacity(graph.num_edges)
+            if graph.num_pairs > self._pair_cap:
+                self._pair_cap = pow2_capacity(graph.num_pairs)
+            if grew_verts:
+                self._v_cap = pow2_capacity(graph.num_vertices)
+        self.graph = graph
+        self.tel = graph.device_tel(edge_capacity=self._edge_cap,
+                                    pair_capacity=self._pair_cap,
+                                    vertex_capacity=self._v_cap,
+                                    device=self.device)
+        if initial or grew_verts:
+            self.num_vertices = self._v_cap
+            self._ones = torch.ones(self._v_cap, dtype=torch.bool,
+                                    device=self.device)
+        self._remember_aux(self.epoch, _EpochAux(
+            self.tel.pair_u, self.tel.pair_v, self.tel.hp_src,
+            self.tel.hp_pair, self._pair_cap, self._v_cap))
+
+    def update_graph(self, graph: TemporalGraph) -> int:
+        """Install a new graph snapshot (streaming append) under a fresh
+        epoch; returns the new epoch.  In-flight queries pinned to older
+        epochs are untouched — their window TELs stay valid and
+        epoch-keyed."""
+        self.epoch += 1
+        self._install(graph, initial=False)
+        return self.epoch
+
+    def _remember_aux(self, epoch: int, aux: _EpochAux) -> None:
+        self._epoch_aux[epoch] = aux
+        self._epoch_aux.move_to_end(epoch)
+        while len(self._epoch_aux) > _EPOCH_AUX_MAX:
+            self._epoch_aux.popitem(last=False)
+
+    def _aux_for(self, epoch: int, g: TemporalGraph) -> _EpochAux:
+        """Pair-table device tensors for one epoch's snapshot, padded to
+        the engine's *current* capacity classes (snapshots are ancestors
+        of the current graph, so they always fit)."""
+        hit = self._epoch_aux.get(epoch)
+        if hit is not None:
+            self._epoch_aux.move_to_end(epoch)
+            return hit
+        if g.num_pairs > self._pair_cap or g.num_vertices > self._v_cap:
+            raise ValueError(
+                "snapshot exceeds engine capacities — not an ancestor of "
+                "the engine's current graph")
+        arrs = g.tel_arrays(pair_capacity=self._pair_cap,
+                            vertex_capacity=self._v_cap)
+        aux = _EpochAux(*(torch.from_numpy(arrs[k]).to(self.device)
+                          for k in ("pair_u", "pair_v", "hp_src",
+                                    "hp_pair")),
+                        self._pair_cap, self._v_cap)
+        self._remember_aux(epoch, aux)
+        return aux
+
+    def retire_epochs(self, live_epochs) -> int:
+        """Evict window-TEL and pair-table cache entries for epochs no
+        longer pinned by any in-flight or pending query; the current epoch
+        is always kept.  Returns the number of evicted entries."""
+        live = {int(e) for e in live_epochs}
+        live.add(self.epoch)
+        dead_w = [k for k in self._win_cache if k[0] not in live]
+        for k in dead_w:
+            del self._win_cache[k]
+        dead_a = [e for e in self._epoch_aux if e not in live]
+        for e in dead_a:
+            del self._epoch_aux[e]
+        return len(dead_w) + len(dead_a)
+
+    # -------------------------------------------------------- window slicing
+    def _window_tel(self, Ts: int, Te: int, *,
+                    graph: Optional[TemporalGraph] = None,
+                    epoch: Optional[int] = None) -> WindowTEL:
+        """Device TEL truncated to [Ts, Te] for one epoch's snapshot.
+
+        Edge arrays are padded to a power-of-two bucket with sentinel
+        edges (t = int32 min, pair_id = pair capacity, ignored by every
+        degree path).  The cache is LRU and keyed by ``(epoch, Ts, Te)``;
+        queries pinned to an older epoch pass ``graph``/``epoch``
+        explicitly.  Each entry pins the wave step built for its TEL (the
+        fused kernel's band tables follow the truncation's segment ids).
+        """
+        g = self.graph if graph is None else graph
+        ep = self.epoch if epoch is None else int(epoch)
+        key = (ep, int(Ts), int(Te))
+        hit = self._win_cache.get(key)
+        if hit is not None:
+            self._win_hits += 1
+            self._win_cache.move_to_end(key)
+            return hit
+        self._win_misses += 1
+        aux = self._aux_for(ep, g)
+        idx = np.flatnonzero((g.t >= Ts) & (g.t <= Te))
+        e = int(idx.size)
+        if ep == self.epoch and e >= g.num_edges:
+            tel, v_cap = self.tel, self._v_cap
+        else:
+            pad = pow2_capacity(e) - e
+            t_w = np.concatenate([g.t[idx], np.full(pad, _I32_MIN, np.int32)])
+            cols = {
+                "src": np.concatenate([g.src[idx], np.zeros(pad, np.int32)]),
+                "dst": np.concatenate([g.dst[idx], np.zeros(pad, np.int32)]),
+                "t": t_w,
+                "pair_id": np.concatenate(
+                    [g.pair_id[idx], np.full(pad, aux.pair_cap, np.int32)]),
+                "time_perm": np.argsort(t_w, kind="stable").astype(np.int32),
+            }
+            dev = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in cols.items()}
+            tel = DeviceTEL(pair_u=aux.pair_u, pair_v=aux.pair_v,
+                            hp_src=aux.hp_src, hp_pair=aux.hp_pair, **dev)
+            v_cap = aux.v_cap
+        seg_pair = make_banded_segsum(aux.pair_cap)
+        seg_vert = make_banded_segsum(v_cap)
+        step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
+                                 seg_vert=seg_vert,
+                                 use_kernel=self._use_kernel, donate=True)
+        out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
+        if len(self._win_cache) >= _WINDOW_CACHE_MAX:
+            self._win_cache.popitem(last=False)     # evict least-recent
+            self._win_evictions += 1
+        self._win_cache[key] = out
+        return out
+
+    # ------------------------------------------------------------ pool seam
+    def make_pool(self, lo: int, hi: int, *,
+                  graph: Optional[TemporalGraph] = None,
+                  epoch: Optional[int] = None, num_queries: int = 1,
+                  wave: Union[int, str] = "auto", depth: int = 2):
+        """Window TEL + lane pipeline for one pool run; returns
+        ``(pipe, wt, wave)`` with W autotuned when ``wave="auto"``."""
+        wt = self._window_tel(int(lo), int(hi), graph=graph, epoch=epoch)
+        if wave == "auto":
+            wave = autotune_wave(wt.num_vertices, wt.window_edges,
+                                 num_queries=num_queries, depth=depth)
+        pipe = WavePipeline(wt.tel, wt.num_vertices, wt.seg_pair,
+                            wt.seg_vert, wave, depth, step_fn=wt.step_fn)
+        return pipe, wt, wave
+
+    # --------------------------------------------------------- observability
+    def stats(self) -> Dict:
+        """The window-TEL LRU's hit/miss/eviction counters."""
+        return {
+            "epoch": self.epoch,
+            "device": str(self.device),
+            "window_tel": {
+                "hits": self._win_hits,
+                "misses": self._win_misses,
+                "evictions": self._win_evictions,
+                "size": len(self._win_cache),
+            },
+        }
+
+    # ------------------------------------------------------------------ query
+    def query(self, k: int, Ts: int, Te: int, *, h: int = 1,
+              algorithm: str = "otcd", mode: str = "serial",
+              wave: Union[int, str] = 8, depth: int = 2,
+              min_span: Optional[int] = None,
+              max_span: Optional[int] = None) -> TCQResult:
+        """All distinct temporal k-cores over subintervals of [Ts, Te].
+
+        algorithm: "otcd" (TTI pruning, §4) or "tcd" (full enumeration, §3).
+        mode: "serial" (paper-faithful) or "wave" (device-resident lane
+        pool — up to ``wave`` schedule cells per device step, ``depth``
+        steps in flight; ``wave="auto"`` autotunes W).
+        h: link-strength lower bound (paper §6.2); 1 = plain TCQ.
+        min_span/max_span: time-span constraint (paper §6.2).
+        """
+        if mode not in ("serial", "wave"):
+            raise ValueError(
+                f"unknown mode {mode!r}: expected 'serial' or 'wave'")
+        t0 = time.perf_counter()
+        uts = self.graph.unique_ts
+        uts = uts[(uts >= Ts) & (uts <= Te)].astype(np.int64)
+        n = int(uts.size)
+        stats = QueryStats(n_timestamps=n, cells_total=n * (n + 1) // 2)
+        if n == 0:
+            return TCQResult([], stats)
+        prune = algorithm == "otcd"
+        if mode == "wave":
+            pipe, wt, wave = self.make_pool(int(uts[0]), int(uts[-1]),
+                                            wave=wave, depth=depth)
+            stats.window_edges = wt.window_edges
+            cores = pipe.run(uts, k, h, prune, stats)
+        else:
+            wt = self._window_tel(int(uts[0]), int(uts[-1]))
+            stats.window_edges = wt.window_edges
+            cores = self._run_serial(uts, k, h, prune, stats, wt)
+        stats.wall_time_s = time.perf_counter() - t0
+        res = TCQResult(list(cores.values()), stats)
+        if min_span is not None or max_span is not None:
+            res = res.filter_span(min_span, max_span)
+        return res
+
+    # ------------------------------------------------------------ query batch
+    def query_batch(self, requests: Sequence[Mapping], *,
+                    algorithm: str = "otcd", wave: Union[int, str] = "auto",
+                    depth: int = 2) -> List[TCQResult]:
+        """Serve many concurrent TCQ queries through one shared lane pool.
+
+        ``requests`` holds mappings with keys ``k``, ``ts``, ``te`` and
+        optionally ``h`` (default 1).  Each request gets its own
+        QueryState; one TEL truncated to the *union* window serves the
+        batch, and per-lane windows keep each query's exact semantics, so
+        every returned result is bit-identical to running that query
+        alone.  Per-query stats carry that query's schedule counters;
+        pipeline counters describe the shared batch.
+        """
+        t0 = time.perf_counter()
+        reqs = [dict(r) for r in requests]
+        prune = algorithm == "otcd"
+        outs: List[Optional[TCQResult]] = [None] * len(reqs)
+        states: List[Tuple[int, QueryState]] = []
+        for qi, r in enumerate(reqs):
+            uts = self.graph.unique_ts
+            uts = uts[(uts >= int(r["ts"])) & (uts <= int(r["te"]))]
+            uts = uts.astype(np.int64)
+            n = int(uts.size)
+            stats = QueryStats(n_timestamps=n,
+                               cells_total=n * (n + 1) // 2,
+                               batch_size=len(reqs))
+            if n == 0:
+                outs[qi] = TCQResult([], stats)
+                continue
+            states.append((qi, QueryState(
+                uts, int(r["k"]), int(r.get("h", 1)), prune, stats,
+                qid=qi)))
+        if states:
+            lo = min(int(s.uts[0]) for _, s in states)
+            hi = max(int(s.uts[-1]) for _, s in states)
+            pipe, wt, wave = self.make_pool(lo, hi,
+                                            num_queries=len(states),
+                                            wave=wave, depth=depth)
+            pool_stats = QueryStats()
+            pipe.run_pool([s for _, s in states], pool_stats)
+            for qi, s in states:
+                st = s.stats
+                st.absorb_pool(pool_stats, window_edges=wt.window_edges,
+                               batch_size=len(reqs))
+                cores = s.decode_results(wt.num_vertices)
+                outs[qi] = TCQResult(list(cores.values()), st)
+        wall = time.perf_counter() - t0
+        for out in outs:
+            out.stats.wall_time_s = wall
+        return outs
+
+    # ----------------------------------------------------------- serial mode
+    def _run_serial(self, uts, k, h, prune, stats, wt: WindowTEL):
+        n = uts.size
+        idx_of = {int(t): i for i, t in enumerate(uts)}
+        pruned: Dict[int, IntervalSet] = defaultdict(IntervalSet)
+        results: Dict[Tuple[int, int], CoreResult] = {}
+        ones = self._ones if wt.num_vertices == self._ones.shape[0] else \
+            torch.ones(wt.num_vertices, dtype=torch.bool, device=self.device)
+        empty_col_max = -1          # cells (r, c<=bound) are provably empty
+        row_alive = None            # warm start across rows (Theorem 1)
+        row_alive_j = -1
+        for i in range(n):
+            iv = pruned.pop(i, IntervalSet())
+            j: Optional[int] = n - 1
+            cur_alive = None
+            first_in_row = True
+            while j is not None and j >= i:
+                j = iv.highest_uncovered_leq(j)
+                if j is None or j < i:
+                    break
+                if j <= empty_col_max:
+                    stats.cells_trivial += (j - i + 1) - iv.total_covered(i, j)
+                    break
+                if cur_alive is not None:
+                    warm = cur_alive
+                elif row_alive is not None and j <= row_alive_j:
+                    warm = row_alive
+                else:
+                    warm = ones
+                res = tcd(wt.tel, warm, int(uts[i]), int(uts[j]), k,
+                                  h, num_vertices=wt.num_vertices)
+                stats.cells_evaluated += 1
+                stats.device_steps += 1
+                # one host read per cell: edge count and TTI together
+                n_edges, tti_lo, tti_hi = torch.stack(
+                    [res.n_edges, res.tti_lo, res.tti_hi]).tolist()
+                if n_edges == 0:
+                    if j > i:
+                        stats.pruned_empty += (j - i) - iv.total_covered(i, j - 1)
+                    empty_col_max = max(empty_col_max, j)
+                    if j == n - 1:
+                        # T[ts_i, Te] empty => all deeper rows empty
+                        stats.cells_trivial += sum(
+                            n - r for r in range(i + 1, n))
+                        return results
+                    break
+                cur_alive = res.alive
+                if first_in_row:
+                    row_alive, row_alive_j = res.alive, j
+                    first_in_row = False
+                a_idx = idx_of[tti_lo]
+                b_idx = idx_of[tti_hi]
+                self._collect(results, res, n_edges, a_idx, b_idx, uts, k,
+                              stats)
+                if prune:
+                    if b_idx < j:                       # Rule 1: PoR
+                        stats.por_triggers += 1
+                        stats.pruned_por += (j - b_idx) - iv.total_covered(
+                            b_idx, j - 1)
+                    if a_idx > i:                       # Rule 2: PoU
+                        stats.pou_triggers += 1
+                        for r in range(i + 1, a_idx + 1):
+                            stats.pruned_pou += pruned[r].add(r, j)
+                    if a_idx > i and b_idx < j:         # Rule 3: PoL
+                        stats.pol_triggers += 1
+                        for r in range(a_idx + 1, b_idx + 1):
+                            stats.pruned_pol += pruned[r].add(b_idx + 1, j)
+                    j = (b_idx - 1) if b_idx < j else j - 1
+                else:
+                    j = j - 1
+        return results
+
+    # ---------------------------------------------------------------- collect
+    def _collect(self, results, res, n_edges, a_idx, b_idx, uts, k, stats):
+        key = (int(uts[a_idx]), int(uts[b_idx]))
+        if key in results:
+            stats.duplicates += 1
+            return
+        alive = res.alive.cpu().numpy()         # full [V] bool transfer
+        stats.host_syncs += 1
+        stats.bytes_synced += alive.nbytes
+        results[key] = CoreResult(k=k, tti=key, vertices=np.flatnonzero(alive),
+                                  n_edges=int(n_edges))
+
+
+def temporal_kcore_query(graph: TemporalGraph, k: int, Ts: int, Te: int, *,
+                         device=None, **kw) -> TCQResult:
+    """One-shot convenience wrapper (builds a throwaway engine)."""
+    return TCQEngine(graph, device=device).query(k, Ts, Te, **kw)

@@ -30,3 +30,8 @@ def pytest_configure(config):
         "crash recovery must be bit-identical (CI runs `-m wal_gate` "
         "with REPRO_WAL_GATE=1 for the every-record kill sweep; the "
         "tests also run, sampled, in plain tier-1)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (and nvcc for the port's kernels); "
+        "skips with a reason where torch sees no CUDA device.  On the card: "
+        "`python -m pytest -m cuda tests/test_torch_*.py`")

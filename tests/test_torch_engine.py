@@ -1,0 +1,229 @@
+"""The PyTorch port's query engine against the JAX package's.
+
+Both engines get the same graph (the port's built with ``from_state`` from
+the reference's ``state_dict``) and must return the same cores — TTI keys,
+vertex sets, edge counts — and the same schedule counters
+(``cells_evaluated``, ``device_steps``, ``duplicates``, ``peel_iters``) at
+the same ``(wave, depth)``, in both modes and both algorithms.  The port
+runs on the CPU here (``device="cpu"``: the plain versions of its
+kernels); tests/test_torch_cuda.py runs it on the card.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import TCQEngine as JEngine  # noqa: E402
+from repro.core.graph import TemporalGraph as JGraph  # noqa: E402
+from repro.core.oracle import peel_window  # noqa: E402
+from repro.graphs import planted_cores, powerlaw_temporal  # noqa: E402
+from repro_torch.core import TCQEngine, TemporalGraph  # noqa: E402
+from repro_torch.core import temporal_kcore_query  # noqa: E402
+from repro_torch.core.scheduler import QueryState  # noqa: E402
+from repro_torch.core.results import QueryStats  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+COUNTERS = ("cells_evaluated", "device_steps", "duplicates", "peel_iters",
+            "host_syncs", "bytes_synced", "lane_refills")
+
+
+def _random_graph(seed, n_v=20, n_e=120, max_t=16, t0=1):
+    rng = np.random.default_rng(seed)
+    return JGraph.from_edges(rng.integers(0, n_v, n_e),
+                             rng.integers(0, n_v, n_e),
+                             rng.integers(t0, t0 + max_t, n_e),
+                             num_vertices=n_v)
+
+
+GRAPHS = {
+    "planted": lambda: planted_cores(seed=7),
+    "powerlaw": lambda: powerlaw_temporal(50, 400, 30, seed=4),
+    "random0": lambda: _random_graph(0),
+    "random1": lambda: _random_graph(1, n_v=16, n_e=150, max_t=12),
+    "negative_t": lambda: _random_graph(2, max_t=14, t0=-9),
+}
+_engines = {}
+
+
+def _engines_for(name):
+    """(reference engine, port engine on the CPU) for one named graph,
+    shared across this module's tests."""
+    if name not in _engines:
+        g = GRAPHS[name]()
+        _engines[name] = (JEngine(g), TCQEngine(
+            TemporalGraph.from_state(g.state_dict()), device="cpu"))
+    return _engines[name]
+
+
+def assert_same_cores(got, want, ctx=""):
+    bg, bw = got.by_tti(), want.by_tti()
+    assert bg.keys() == bw.keys(), ctx
+    for key, cw in bw.items():
+        assert np.array_equal(bg[key].vertices, cw.vertices), (ctx, key)
+        assert bg[key].n_edges == cw.n_edges, (ctx, key)
+
+
+def assert_same_counters(got, want, ctx=""):
+    for f in COUNTERS:
+        assert getattr(got.stats, f) == getattr(want.stats, f), (ctx, f)
+
+
+@pytest.mark.parametrize("mode", ["serial", "wave"])
+@pytest.mark.parametrize("algorithm", ["otcd", "tcd"])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_query_matches_reference(name, algorithm, mode):
+    je, te = _engines_for(name)
+    Ts, Te = je.graph.span
+    for k, h in ((2, 1), (3, 2)):
+        want = je.query(k, Ts, Te, h=h, algorithm=algorithm, mode=mode)
+        got = te.query(k, Ts, Te, h=h, algorithm=algorithm, mode=mode)
+        ctx = f"{name} {algorithm} {mode} k={k} h={h}"
+        assert_same_cores(got, want, ctx)
+        assert_same_counters(got, want, ctx)
+
+
+@pytest.mark.parametrize("wave,depth", [(1, 1), (3, 1), (5, 3), (16, 2),
+                                        ("auto", 2)])
+def test_wave_counters_match_reference_at_each_width_and_depth(wave, depth):
+    je, te = _engines_for("planted")
+    want = je.query(3, 1, 40, mode="wave", wave=wave, depth=depth)
+    got = te.query(3, 1, 40, mode="wave", wave=wave, depth=depth)
+    assert_same_cores(got, want)
+    assert_same_counters(got, want, f"wave={wave} depth={depth}")
+
+
+@pytest.mark.parametrize("name", ["planted", "powerlaw"])
+def test_query_batch_matches_reference(name):
+    je, te = _engines_for(name)
+    Ts, Te = je.graph.span
+    mid = (Ts + Te) // 2
+    reqs = [{"k": 2, "ts": Ts, "te": Te}, {"k": 3, "ts": Ts + 2, "te": mid},
+            {"k": 2, "ts": mid, "te": Te, "h": 2},
+            {"k": 4, "ts": Te + 5, "te": Te + 9}]     # empty window
+    wants = je.query_batch(reqs, depth=3)
+    gots = te.query_batch(reqs, depth=3)
+    for i, (got, want) in enumerate(zip(gots, wants)):
+        assert_same_cores(got, want, f"request {i}")
+        assert_same_counters(got, want, f"request {i}")
+        alone = te.query(reqs[i]["k"], reqs[i]["ts"], reqs[i]["te"],
+                         h=reqs[i].get("h", 1), mode="wave")
+        assert_same_cores(alone, got, f"request {i} alone")
+
+
+def test_streaming_update_matches_reference():
+    g = planted_cores(seed=2)
+    je = JEngine(g)
+    te = TCQEngine(TemporalGraph.from_state(g.state_dict()), device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        n = 60
+        batch = (rng.integers(0, 80, n), rng.integers(0, 80, n),
+                 rng.integers(1, 50, n))           # new vertices and times
+        g = g.add_edges(*batch)
+        je.update_graph(g)
+        te.update_graph(TemporalGraph.from_state(g.state_dict()))
+        assert te.num_vertices == je.num_vertices
+        for mode in ("serial", "wave"):
+            want = je.query(3, 1, 50, mode=mode)
+            got = te.query(3, 1, 50, mode=mode)
+            assert_same_cores(got, want, mode)
+            assert_same_counters(got, want, mode)
+    assert te.stats()["epoch"] == je.stats()["epoch"] == 2
+    assert te.retire_epochs([]) == je.retire_epochs([])
+
+
+def test_warm_start_rows_survive_later_in_place_steps():
+    """The lane buffer is peeled in place, so the warm-start row a query
+    keeps must be a copy: after the pool drains (the lane having peeled
+    later cells over that row), it must still be the core of the cell it
+    was taken from."""
+    je, te = _engines_for("planted")
+    g = te.graph
+    uts = g.unique_ts.astype(np.int64)
+    pipe, _, _ = te.make_pool(int(uts[0]), int(uts[-1]), wave=2, depth=1)
+    states = [QueryState(uts, k, 1, True, QueryStats(), qid=k)
+              for k in (2, 3)]
+    pipe.run_pool(states, QueryStats())
+    for s in states:
+        i, j, row = s.best_init
+        em = peel_window(je.graph, int(uts[i]), int(uts[j]), s.k)
+        want = np.zeros(g.num_vertices, bool)
+        want[je.graph.src[em]] = want[je.graph.dst[em]] = True
+        np.testing.assert_array_equal(row.numpy(), want)
+
+
+def test_temporal_kcore_query_matches_reference():
+    from repro.core import temporal_kcore_query as jquery
+
+    g = planted_cores(seed=4)
+    want = jquery(g, 3, 1, 40, mode="wave")
+    got = temporal_kcore_query(TemporalGraph.from_state(g.state_dict()), 3,
+                               1, 40, mode="wave", device="cpu")
+    assert_same_cores(got, want)
+
+
+def test_engine_defaults_to_cuda_and_raises_without_it():
+    g = TemporalGraph.from_state(planted_cores(seed=1).state_dict())
+    if torch.cuda.is_available():
+        assert TCQEngine(g).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TCQEngine(g)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TCQEngine(g, device="cuda")
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("mesh", object(), "A11"), ("combine", "psum", "A11"),
+    ("cache", True, "A7"), ("resilience", True, "A8")])
+def test_options_not_ported_raise(option, value, item):
+    g = TemporalGraph.from_state(planted_cores(seed=1).state_dict())
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        TCQEngine(g, device="cpu", **{option: value})
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_neither_jax_nor_reference(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20     # every module was imported
