@@ -24,8 +24,19 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
 4. profiles one more ``query_batch``: device time by kernel and the
    device's busy share;
 5. times each kernel at the main path's shapes beside its plain version,
-   its roofline bound and (segdeg) one PyTorch library call, and prints
-   them as one JSON line, then the ``{"ok": true, ...}`` line last.
+   its roofline bound and (segdeg) one PyTorch library call;
+6. serves the Jamba-1.5-Large config at its published widths (layers cut
+   72 -> 8, one scan period; experts removed) in bf16 with seeded random
+   weights: a prefill of 2 prompts x 2,048 tokens into a 32,768-token
+   cache, then 32 greedy decode steps, each path with the launch counters
+   zeroed before it and read after it (ssm_scan: one launch per Mamba
+   layer, 7 and 7 x 32).  It holds ssm_scan to its plain version on the
+   card at the prefill and decode shapes, on the scan inputs those passes
+   build, profiles one more prefill and four decode steps, and holds the
+   smoke-size model on the card to the same model on the CPU;
+
+and prints every kernel's numbers as one JSON line, then the
+``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero with no result
 line; it also exits non-zero when no CUDA device is present.  It never
@@ -43,9 +54,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FUZZ_SEEDS = range(6)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-# The kernels only compare and add int32.  H100 SXM INT32 rate outside
-# the tensor cores: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
+# wave_peel and segdeg only compare and add int32.  H100 SXM INT32 rate
+# outside the tensor cores: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
 INT_OPS_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 67e12           # H100 SXM float32, no tensor cores (ssm_scan)
+JAMBA = "jamba-1.5-large-398b"
 
 
 def log(msg: str) -> None:
@@ -79,11 +92,11 @@ def time_ms(fn, reps: int, setup=None) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the INT32 rate."""
+    operations over ``ops_per_s`` (the INT32 rate unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -219,6 +232,32 @@ def phase_kernels(dev) -> dict:
     return errs
 
 
+# ------------------------------------------------------ launch counters
+def wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.segdeg.ops import banded_segsum
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.wave_peel.ops import wave_peel
+
+    return {"wave_peel": wave_peel, "segdeg": banded_segsum,
+            "ssm_scan": ssm_scan}
+
+
+def run_path(fn):
+    """Drive one path with every launch counter set to 0 just before it
+    and read just after: (result, wall s, {kernel: launches})."""
+    import torch
+
+    torch.cuda.synchronize()
+    for w in wrappers().values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: w.launches for k, w in wrappers().items()}
+
+
 # ---------------------------------------------------- phase 3: main path
 def same_cores(a, b, ctx: str) -> None:
     import numpy as np
@@ -257,11 +296,8 @@ def pick_queries(eng, g, n: int = 8, span_uts: int = 64, seed: int = 11,
 
 
 def phase_main(dev) -> dict:
-    import torch
     from repro_torch.core import TCQEngine
     from repro_torch.graphs import powerlaw_temporal
-    from repro_torch.kernels.segdeg.ops import banded_segsum
-    from repro_torch.kernels.wave_peel.ops import wave_peel
 
     t0 = time.perf_counter()
     g = powerlaw_temporal(num_vertices=24_818, num_edges=506_550,
@@ -276,18 +312,6 @@ def phase_main(dev) -> dict:
     log(f"queries ({time.perf_counter() - t0:.1f}s to pick): "
         + json.dumps(reqs))
     comp_eng = TCQEngine(g, use_kernel=False)
-
-    def run_path(fn):
-        """Drive one path with both launch counters set to 0 just before
-        it and read just after: (result, wall s, {kernel: launches})."""
-        torch.cuda.synchronize()
-        wave_peel.launches = banded_segsum.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return out, wall, {"wave_peel": wave_peel.launches,
-                           "segdeg": banded_segsum.launches}
 
     # the first batch also builds the union-window TEL (cold); the second
     # reuses it from the engine's window LRU (warm)
@@ -322,6 +346,8 @@ def phase_main(dev) -> dict:
     expect("wave", "segdeg", lambda n: n == 0, "0")
     for kernel in ("wave_peel", "segdeg"):
         expect("serial", kernel, lambda n: n == 0, "0")
+    for path in by_path:
+        expect(path, "ssm_scan", lambda n: n == 0, "0")
     iters = comp[0].stats.peel_iters
     expect("composite_batch", "segdeg", lambda n: n >= 2 * iters,
            f">= 2 x {iters} peel iterations")
@@ -344,9 +370,9 @@ def phase_main(dev) -> dict:
 
 
 # ------------------------------------------ phase 4: where the time goes
-def phase_profile(main: dict) -> None:
-    """One more ``query_batch`` under ``torch.profiler``: device time by
-    kernel and the device's busy share of the batch's wall time."""
+def profiled(fn, what: str, top: int = 6) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and log the device's busy
+    share of its wall time and the kernels that took the most of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -354,7 +380,7 @@ def phase_profile(main: dict) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        main["eng"].query_batch(main["reqs"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -364,12 +390,19 @@ def phase_profile(main: dict) -> None:
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if not rows:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"profile of {what}: the profiler saw no device time "
+            "(not measured)")
         return
-    log(f"profile of query_batch: wall {wall_ms:.1f} ms under the profiler, "
+    log(f"profile of {what}: wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
-    for name, ms, count in rows[:6]:
+    for name, ms, count in rows[:top]:
         log(f"  {ms:9.2f} ms  {count:5d} x  {name[:90]}")
+
+
+def phase_profile(main: dict) -> None:
+    """One more ``query_batch`` under ``torch.profiler``: device time by
+    kernel and the device's busy share of the batch's wall time."""
+    profiled(lambda: main["eng"].query_batch(main["reqs"]), "query_batch")
 
 
 # ---------------------------------------- phase 5: full-size step + timing
@@ -431,26 +464,204 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
     seg_bound, seg_by = bound(4 * n * W + 4 * n + 4 * S * W, n * W)
     log(f"segdeg timed at values [{n}, {W}] -> [{S}, {W}]")
 
-    def launches(kernel: str) -> dict:
-        """``launches`` sums the per-path counts in ``launches_by_path``."""
-        per = {p: n[kernel] for p, n in main["by_path"].items()}
-        return {"launches": sum(per.values()), "launches_by_path": per}
-
     return [
         {"name": "wave_peel", "route": "cuda",
          "source": "src/repro_torch/kernels/wave_peel/csrc/wave_peel.cu",
          "replaces": "src/repro/kernels/wave_peel/kernel.py:179",
-         **launches("wave_peel"),
          "max_abs_err": errs["wave_peel"], "ms": peel_ms,
          "plain_ms": plain_ms, "bound_ms": peel_bound, "bound_by": peel_by,
          "library_ms": None},
         {"name": "segdeg", "route": "cuda",
          "source": "src/repro_torch/kernels/segdeg/csrc/segdeg.cu",
          "replaces": "src/repro/kernels/segdeg/kernel.py:109",
-         **launches("segdeg"), "max_abs_err": errs["segdeg"],
+         "max_abs_err": errs["segdeg"],
          "ms": seg_ms, "plain_ms": seg_plain_ms, "bound_ms": seg_bound,
          "bound_by": seg_by, "library_ms": lib_ms},
     ]
+
+
+# ------------------------------------------- phase 6: Jamba serving path
+def phase_lm_smoke(dev) -> None:
+    """The smoke-size Jamba without experts (f32) with the same weights on
+    the card (ssm_scan kernel) and on the CPU (plain loop): prefill logits
+    and teacher-forced decode logits within rtol=atol=1e-4; the greedy
+    tokens of both are reported."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models.transformer import (Transformer, init_cache,
+                                                init_params)
+
+    cfg = get_smoke_config(JAMBA).scaled(moe=None)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    b, s, n, s_max = 2, 16, 8, 32
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n)))
+    out = []                               # [(logits, tokens)]: CPU, card
+    for where in ("cpu", dev):
+        model = Transformer(cfg, params, device=where)
+        d = model.device
+        cache = init_cache(cfg, b, s_max, device=d)
+        logits = [prefill_step(model, {"tokens": prompt.to(d)}, cache)[0]]
+        with torch.inference_mode():
+            for i in range(n):
+                h, _, cache = model({"tokens": forced[:, i:i + 1].to(d),
+                                     "cache_index": s + i}, mode="decode",
+                                    cache=cache)
+                logits.append(model.logits_from_hidden(h))
+        last, cache = prefill_step(model, {"tokens": prompt.to(d)}, cache)
+        tok = last.argmax(-1).to(torch.int32)
+        toks = [tok]
+        for i in range(n - 1):
+            tok, cache = serve_step(model, cache,
+                                    {"tokens": tok, "cache_index": s + i})
+            toks.append(tok)
+        out.append((torch.cat(logits, 1).cpu(), torch.cat(toks, 1).cpu()))
+    (lc, tc), (lg, tg) = out
+    err = float((lg - lc).abs().max())
+    check(torch.isfinite(lg).all() and torch.allclose(
+        lg, lc, rtol=1e-4, atol=1e-4),
+        f"smoke Jamba: card vs CPU logits differ by {err}")
+    log(f"smoke Jamba (f32, d_model {cfg.d_model}, {cfg.n_layers} layers): "
+        f"prefill and {n} teacher-forced decode logits on the card within "
+        f"rtol=atol=1e-4 of the CPU (max |diff| {err:.3g}); greedy tokens "
+        f"card {tg.tolist()}, CPU {tc.tolist()} "
+        f"({'equal' if torch.equal(tg, tc) else 'DIFFERENT'})")
+
+
+def hold_scan(la, bx, s0, what: str, reps: int, plain_reps: int) -> dict:
+    """ssm_scan against its plain version on the card at one shape:
+    rtol=atol=1e-5 (tests/test_kernels.py's tolerance), then both timed
+    and the kernel's byte bound."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    got, want = ssm_scan(la, bx, s0), ssm_scan_ref(la, bx, s0)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"ssm_scan at the {what} shape: max |diff| {err}")
+    del got, want
+    ms = time_ms(lambda: ssm_scan(la, bx, s0), reps)
+    plain_ms = time_ms(lambda: ssm_scan_ref(la, bx, s0), plain_reps)
+    nb, ns, nf = la.shape
+    bound_ms, bound_by = bound(4 * (3 * nb * ns * nf + nb * nf),
+                               3 * nb * ns * nf, F32_OPS_PER_S)
+    log(f"ssm_scan at the {what} shape {list(la.shape)}: within "
+        f"rtol=atol=1e-5 of the plain loop (max |diff| {err:.3g}); "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_lm(dev) -> dict:
+    """The Jamba serving path at full width: prefill, then greedy decode,
+    each with the launch counters zeroed before it and read after it;
+    ssm_scan held to its plain version on the inputs of those passes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models.layers import norm
+    from repro_torch.models.ssm import _ssm_inputs
+    from repro_torch.models.transformer import Transformer, init_cache
+
+    full = get_config(JAMBA)
+    cfg = full.scaled(n_layers=8, moe=None)
+    b, s, s_max, n_dec = 2, 2_048, 32_768, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    specs = [sp.mixer for sp in cfg.layer_specs()]
+    log(f"jamba: {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"d_state {cfg.mamba.d_state}, d_inner "
+        f"{cfg.mamba.d_inner(cfg.d_model)}); cuts: layers {full.n_layers} "
+        f"-> {cfg.n_layers} (one scan period: {specs}), experts removed "
+        f"(every FFN dense); {cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"parameters, seeded init on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    rng = np.random.default_rng(17)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    cache = init_cache(cfg, b, s_max, device=dev)
+
+    def prefill():
+        return prefill_step(model, {"tokens": prompt}, cache)
+
+    def decode(tok, steps):
+        toks = []
+        for i in range(steps):
+            tok, _ = serve_step(model, cache, {"tokens": tok,
+                                               "cache_index": s + i})
+            toks.append(tok)
+        return torch.cat(toks, 1)
+
+    def first_token(last):
+        return last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+    decode(first_token(prefill()[0]), 2)       # warm-up; prefill resets
+    (last, _), pre_s, n_pre = run_path(prefill)
+    tok0 = first_token(last)
+    toks, dec_s, n_dec_run = run_path(lambda: decode(tok0, n_dec))
+    peak = torch.cuda.max_memory_allocated()
+    by_path = {"jamba_prefill": n_pre, "jamba_decode": n_dec_run}
+    check(tuple(last.shape) == (b, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(last).all()), "prefill logits")
+    check(tuple(toks.shape) == (b, n_dec) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, "decoded tokens")
+    n_mamba = specs.count("mamba")
+    for path, want in (("jamba_prefill", n_mamba),
+                       ("jamba_decode", n_mamba * n_dec)):
+        got = by_path[path]
+        check(got == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want},
+              f"{path}: launches {got}, want ssm_scan {want} and no other")
+    log(f"jamba prefill: {b} x {s} tokens into a {s_max}-token cache in "
+        f"{pre_s:.3f}s ({b * s / pre_s:.0f} tokens/s)")
+    log(f"jamba decode: {n_dec} greedy steps of {b} tokens in {dec_s:.3f}s "
+        f"({1e3 * dec_s / n_dec:.2f} ms per step of {b} tokens, "
+        f"{b * n_dec / dec_s:.1f} tokens/s); first tokens "
+        f"{toks[:, :8].tolist()}")
+    log(f"jamba launches by path: {json.dumps(by_path)}; peak memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+    # ssm_scan on the inputs of the first Mamba layer in each pass
+    p0 = model.params["dec"].select(0)["sub0"]
+    di, ds = cfg.mamba.d_inner(cfg.d_model), cfg.mamba.d_state
+    with torch.inference_mode():
+        def scan_inputs(tokens, conv0):
+            h = norm(model.params["embed"]["tok"][tokens], p0["ln1"],
+                     cfg.norm)
+            dta, bxx, *_ = _ssm_inputs(p0["mixer"], h, cfg, conv0)
+            return (dta.reshape(b, tokens.shape[1], di * ds),
+                    bxx.reshape(b, tokens.shape[1], di * ds))
+
+        la, bx = scan_inputs(prompt, torch.zeros(
+            (b, cfg.mamba.d_conv - 1, di), dtype=last.dtype, device=dev))
+        s0 = torch.zeros((b, di * ds), dtype=torch.float32, device=dev)
+        at_prefill = hold_scan(la, bx, s0, "prefill", 10, 3)
+        del la, bx
+        la, bx = scan_inputs(toks[:, -1:], cache["sub0"]["conv"][0])
+        at_decode = hold_scan(la, bx, cache["sub0"]["ssm"][0].reshape(b, -1),
+                              "decode", 200, 50)
+    profiled(prefill, "jamba prefill", top=8)
+    profiled(lambda: decode(tok0, 4), "4 jamba decode steps", top=8)
+    entry = {"name": "ssm_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+             "replaces": "src/repro/kernels/ssm_scan/kernel.py:67",
+             **at_prefill,
+             "max_abs_err": max(at_prefill["max_abs_err"],
+                                at_decode["max_abs_err"]),
+             "library_ms": None,
+             "at_decode_shape": at_decode}
+    return {"by_path": by_path, "entry": entry}
 
 
 def main() -> int:
@@ -483,10 +694,23 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f}s: "
         f"{library_path().relative_to(ROOT)}")
 
+    # full float32 matrix products, so the f32 model on the card can be
+    # held to the CPU at 1e-4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     errs = phase_kernels(dev)
     main_run = phase_main(dev)
     phase_profile(main_run)
     kernels = phase_timing(dev, main_run, errs)
+    del main_run["eng"], main_run["g"]
+    phase_lm_smoke(dev)
+    lm = phase_lm(dev)
+    kernels.append(lm["entry"])
+    by_path = {**main_run["by_path"], **lm["by_path"]}
+    for k in kernels:       # ``launches`` sums the per-path counts
+        per = {path: n[k["name"]] for path, n in by_path.items()}
+        k["launches"], k["launches_by_path"] = sum(per.values()), per
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

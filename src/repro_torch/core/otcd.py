@@ -56,14 +56,15 @@ _NOT_PORTED = {"mesh": "A11", "combine": "A11", "cache": "A7",
                "resilience": "A8"}
 
 
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: CUDA unless the caller names another.  Raises
-    when CUDA is asked for (or defaulted to) and there is none — the port
-    never carries on quietly on the CPU."""
+def resolve_device(device=None, who: str = "TCQEngine") -> torch.device:
+    """The device of an engine or model (``who``, for the error): CUDA
+    unless the caller names another.  Raises when CUDA is asked for (or
+    defaulted to) and there is none — the port never carries on quietly
+    on the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "TCQEngine runs on CUDA by default and no CUDA device is "
+            f"{who} runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain versions")
     return dev
 

@@ -1,0 +1,168 @@
+"""GQA attention: train/prefill (dense, or chunked online softmax for long
+KV) and decode (cached KV).
+
+PyTorch counterpart of ``repro.models.attention`` for self-attention:
+grouped KV (any ratio), sliding window, attention-logit softcap, QKV bias
+and (M-)RoPE.  Cross-attention (the whisper decoder) waits for the
+encoder-decoder slice (ROADMAP A12).
+
+Masks are built from sequence ranks, never from per-batch position
+tensors, so the mask is a batch-free [1, Sq, Sk] bias; RoPE uses the real
+position tensors.  The arithmetic follows the JAX functions step for step:
+scores and softmax in float32 (the JAX einsums' ``preferred_element_type``
+is a float32 product of the inputs, here the inputs cast to float32), the
+same max, exp, sum and division, so the two packages agree to float32
+rounding.  No fused attention operator is used.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.layers import apply_rope, softcap
+
+NEG_INF = -2.0e38
+
+
+def _split_heads(x, n, hd):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd)
+
+
+def _mask_bias(q_rank, k_rank, causal: bool, window: Optional[int],
+               k_valid=None):
+    """[1, Sq, Sk] additive bias in f32 from sequence ranks [1, S]."""
+    d = q_rank[:, :, None] - k_rank[:, None, :]
+    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        m = m & (d >= 0)
+    if window is not None:
+        m = m & (d < window)
+    if k_valid is not None:
+        m = m & k_valid[:, None, :]
+    return torch.where(m, 0.0, NEG_INF).to(torch.float32)
+
+
+def _attend_dense(q, k, v, bias, scale, cap, scores_f32: bool = True):
+    """q: [B,Sq,H,hd]; k/v: [B,Sk,KV,hd]; bias: [1,Sq,Sk].
+
+    scores_f32=False keeps scores and weights in bf16 between the f32
+    reductions, as the JAX option does."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    qg = q.reshape(b, sq, kv, rep, hd)
+    sdt = torch.float32 if scores_f32 else torch.bfloat16
+    f32 = torch.float32
+    logits = torch.einsum("bqkrh,bskh->bkrqs", qg.to(f32), k.to(f32)) * scale
+    logits = (softcap(logits, cap) + bias[:, None, None, :, :]).to(sdt)
+    m = torch.amax(logits.to(f32), dim=-1, keepdim=True)
+    p = torch.exp(logits.to(f32) - m).to(sdt)
+    den = torch.sum(p.to(f32), dim=-1, keepdim=True)
+    out = torch.einsum("bkrqs,bskh->bqkrh", p.to(f32), v.to(f32))
+    out = out / den.reshape(b, kv, rep, sq, 1).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _attend_chunked(q, k, v, q_rank, k_rank, causal, window, scale, cap,
+                    chunk: int = 1024, k_valid=None):
+    """Online softmax over KV chunks, O(S·chunk) memory for long prefill.
+    q_rank: [1, Sq]; k_rank: [1, Sk]; k_valid: [1, Sk] or None."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kv = k.shape[2]
+    rep = h // kv
+    f32 = torch.float32
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    valid = (k_valid if k_valid is not None
+             else torch.ones((1, sk), dtype=torch.bool, device=k.device))
+    if pad:             # padded keys: zero, rank -1, never valid
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_rank = torch.nn.functional.pad(k_rank, (0, pad), value=-1)
+        valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+    qg = q.reshape(b, sq, kv, rep, hd).to(f32)
+
+    m = torch.full((b, kv, rep, sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, kv, rep, sq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, kv, rep, sq, hd), dtype=f32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        bias = _mask_bias(q_rank, k_rank[:, sl], causal, window,
+                          valid[:, sl])                       # [1,Sq,C]
+        logits = torch.einsum("bqkrh,bckh->bkrqc", qg,
+                              k[:, sl].to(f32)) * scale
+        logits = softcap(logits, cap) + bias[:, None, None, :, :]
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkrqc,bckh->bkrqh", p, v[:, sl].to(f32))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return out.to(q.dtype)
+
+
+def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
+              *, cache: Optional[dict] = None, cache_index=None):
+    """Causal self-attention sublayer (projections + rope + attend +
+    out-proj).
+
+    cache: {"k", "v"} [B, S_max, KV, hd] for prefill/decode.  The new keys
+    and values are written into it in place at ``cache_index`` (clamped so
+    the write fits, as ``lax.dynamic_update_slice`` clamps), and the
+    attention reads the whole cache with the unwritten tail masked.
+    Returns out [B, S, d].
+    """
+    hd = cfg.resolved_head_dim
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    b, s, _ = x.shape
+    scale = hd ** -0.5
+
+    q = _split_heads(x @ p["wq"], h, hd)
+    if "bq" in p:
+        q = q + p["bq"].reshape(1, 1, h, hd)
+    k = _split_heads(x @ p["wk"], kvh, hd)
+    v = _split_heads(x @ p["wv"], kvh, hd)
+    if "bk" in p:
+        k = k + p["bk"].reshape(1, 1, kvh, hd)
+        v = v + p["bv"].reshape(1, 1, kvh, hd)
+    if cfg.pos in ("rope", "mrope"):
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+
+    dev = x.device
+    if cache is not None:
+        if s > cache["k"].shape[1]:
+            raise ValueError(f"{s} tokens do not fit a cache of "
+                             f"{cache['k'].shape[1]}")
+        ci = int(cache_index)
+        at = min(max(ci, 0), cache["k"].shape[1] - s)
+        cache["k"][:, at:at + s] = k.to(cache["k"].dtype)
+        cache["v"][:, at:at + s] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+
+    # ---- batch-free sequence-rank masks ----
+    sk = k.shape[1]
+    k_rank = torch.arange(sk, dtype=torch.int32, device=dev)[None]
+    if cache is not None:
+        q_rank = (ci + torch.arange(s, dtype=torch.int32, device=dev))[None]
+        k_valid = k_rank <= ci + s - 1
+    else:
+        q_rank = torch.arange(s, dtype=torch.int32, device=dev)[None]
+        k_valid = None
+
+    if sk > cfg.attn_chunk_threshold and s > 1:
+        out = _attend_chunked(q, k, v, q_rank, k_rank, True, spec.window,
+                              scale, cfg.attn_softcap, k_valid=k_valid)
+    else:
+        bias = _mask_bias(q_rank, k_rank, True, spec.window, k_valid)
+        out = _attend_dense(q, k, v, bias, scale, cfg.attn_softcap,
+                            scores_f32=cfg.attn_scores_f32)
+
+    return out.reshape(b, s, h * hd) @ p["wo"]

@@ -18,8 +18,13 @@ from repro_torch.core.graph import pow2_capacity  # noqa: E402
 from repro_torch.core.wave import (make_composite_step,  # noqa: E402
                                    make_wave_step_fn)
 from repro_torch.graphs import planted_cores, powerlaw_temporal  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.segdeg import ops as segdeg  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as scan  # noqa: E402
 from repro_torch.kernels.wave_peel import ops as peel  # noqa: E402
+from repro_torch.launch.steps import prefill_step, serve_step  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.ssm import mamba_mix  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +33,9 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: torch sees no CUDA device")
+    # full float32 products, so f32 models on the card match the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -139,3 +147,101 @@ def test_engine_on_card_matches_cpu_engine(cuda, use_kernel, graph):
             assert getattr(got.stats, f) == getattr(want.stats, f), f
     for got, want in zip(on_card.query_batch(reqs), on_cpu.query_batch(reqs)):
         assert got.by_tti().keys() == want.by_tti().keys()
+
+
+# ------------------------------------------------------- ssm_scan and LM
+@pytest.mark.parametrize("b,s,f,dtype,layout", [
+    (1, 1, 1, "float32", "contiguous"),
+    (2, 1, 4099, "float32", "contiguous"),        # S = 1 (decode)
+    (3, 37, 1000, "float32", "contiguous"),       # F % 256 != 0
+    (2, 300, 700, "float32", "strided"),          # non-contiguous inputs
+    (2, 64, 513, "bfloat16", "contiguous"),       # cast to f32 first
+])
+def test_ssm_scan_kernel_matches_plain_version(cuda, b, s, f, dtype,
+                                               layout):
+    """Tolerance of tests/test_kernels.py's ssm_scan test."""
+    rng = np.random.default_rng(b * s + f)
+    shape = (b, f, s) if layout == "strided" else (b, s, f)
+    la = -np.abs(rng.normal(0.3, 0.5, shape))
+    bx = rng.normal(0, 1, shape)
+    s0 = rng.normal(0, 1, (b, f))
+    la, bx, s0 = (torch.from_numpy(a.astype(np.float32)).to(cuda).to(
+        getattr(torch, dtype)) for a in (la, bx, s0))
+    if layout == "strided":
+        la, bx = la.transpose(1, 2), bx.transpose(1, 2)
+        assert not la.is_contiguous()
+    n0 = scan.ssm_scan.launches
+    got = scan.ssm_scan(la, bx, s0)
+    assert scan.ssm_scan.launches == n0 + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, f)
+    torch.testing.assert_close(got, scan.ssm_scan_ref(la, bx, s0),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_rejects_mismatched_shapes(cuda):
+    la = torch.zeros((2, 3, 4), device=cuda)
+    with pytest.raises(ValueError, match="expected log_a"):
+        scan.ssm_scan(la, la[:, :2], torch.zeros((2, 4), device=cuda))
+    with pytest.raises(ValueError, match="expected log_a"):
+        scan.ssm_scan(la, la, torch.zeros((2, 3), device=cuda))
+
+
+def _smoke_jamba():
+    cfg = get_smoke_config("jamba-1.5-large-398b").scaled(moe=None)
+    return cfg, T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def test_mamba_mix_on_card_matches_cpu(cuda):
+    cfg, params = _smoke_jamba()
+    p = {k: v[0] for k, v in params["dec"]["sub0"]["mixer"].items()}
+    m, d = cfg.mamba, cfg.d_model
+    di = m.d_inner(d)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 19, d)).astype(np.float32))
+    st = (torch.from_numpy(rng.normal(0, 0.5, (2, di, m.d_state))
+                           .astype(np.float32)),
+          torch.from_numpy(rng.normal(0, 0.5, (2, m.d_conv - 1, di))
+                           .astype(np.float32)))
+    want = mamba_mix(p, x, cfg, st)
+    n0 = scan.ssm_scan.launches
+    got = mamba_mix({k: v.to(cuda) for k, v in p.items()}, x.to(cuda), cfg,
+                    tuple(t.to(cuda) for t in st))
+    assert scan.ssm_scan.launches == n0 + 1
+    for g, w in ((got[0], want[0]), (got[1][0], want[1][0]),
+                 (got[1][1], want[1][1])):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_step_on_card_matches_cpu(cuda):
+    """Prefill, then teacher-forced decode steps, on the card (one
+    ssm_scan launch per Mamba layer and pass) and on the CPU."""
+    cfg, params = _smoke_jamba()
+    rng = np.random.default_rng(3)
+    b, s, n, s_max = 2, 12, 4, 20
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + n)))
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    runs = []
+    for dev in ("cpu", cuda):
+        model = T.Transformer(cfg, params, device=dev)
+        cache = T.init_cache(cfg, b, s_max, device=dev)
+        t = tok.to(dev)
+        n0 = scan.ssm_scan.launches
+        logits, cache = prefill_step(model, {"tokens": t[:, :s]}, cache)
+        nxt = []
+        for i in range(n):
+            got, cache = serve_step(model, cache, {
+                "tokens": t[:, s + i:s + i + 1], "cache_index": s + i})
+            nxt.append(got)
+        launched = scan.ssm_scan.launches - n0
+        assert launched == (0 if dev == "cpu" else n_mamba * (1 + n))
+        runs.append((logits.cpu(), torch.cat(nxt, 1).cpu(),
+                     {k: {n_: v.cpu() for n_, v in c.items()}
+                      for k, c in cache.items()}))
+    (lc, tc, cc), (lg, tg, cg) = runs
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tg, tc)
+    for sub in cc:
+        for name in cc[sub]:           # states of 1e-7: atol at their scale
+            scale = min(1.0, float(cc[sub][name].abs().max()))
+            torch.testing.assert_close(cg[sub][name], cc[sub][name],
+                                       rtol=1e-4, atol=1e-4 * scale)
