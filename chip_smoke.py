@@ -10,9 +10,12 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds each kernel against its plain PyTorch version on the card:
    ``wave_peel`` bit-identical on all six StepResult fields over a seeded
-   fuzz sweep, ``segdeg`` exact on 0/1 values and within 1e-5 on floats,
-   the composite step with segdeg closures equal to the fused step, and
-   a small graph's cores equal to the brute-force oracle;
+   fuzz sweep, with h in {0, 3}, W in {1, 33, 64} and a pair of 50,000
+   edges; ``segdeg`` exact on 0/1 values and within 1e-5 on floats, with
+   a run of 50,000 rows across many row tiles, Q in {1, 3, 4, 5, 64},
+   and two calls equal bit for bit; the composite step with segdeg
+   closures equal to the fused step; a small graph's cores equal to the
+   brute-force oracle;
 3. drives the main path at the published shape of SNAP sx-mathoverflow
    (24,818 vertices, 506,550 temporal edges, 2,350 days): one
    ``query_batch`` of 8 queries (cold, then warm), each query again
@@ -24,7 +27,11 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
 4. profiles one more ``query_batch``: device time by kernel and the
    device's busy share;
 5. times each kernel at the main path's shapes beside its plain version,
-   its roofline bound and (segdeg) one PyTorch library call;
+   its roofline bound and (segdeg) one PyTorch library call, and says
+   whether segdeg beats ``index_add_`` and wave_peel its plain step.  A
+   call's time comes from CUDA events around it (``ms``, which holds the
+   wrapper's host work when the host is the slower), the kernel's own
+   from ``torch.profiler`` (``device_ms``);
 6. serves the Jamba-1.5-Large config at its published widths (layers cut
    72 -> 8, one scan period; experts removed) in bf16 with seeded random
    weights: a prefill of 2 prompts x 2,048 tokens into a 32,768-token
@@ -35,7 +42,8 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    build, profiles one more prefill and four decode steps, and holds the
    smoke-size model on the card to the same model on the CPU;
 
-and prints every kernel's numbers as one JSON line, then the
+and prints every kernel's registers, shared memory and spills (``ptxas
+-v``) after the build, every kernel's numbers as one JSON line, then the
 ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero with no result
@@ -90,6 +98,33 @@ def time_ms(fn, reps: int, setup=None) -> float:
     torch.cuda.synchronize()
     times = sorted(a.elapsed_time(b) for a, b in pairs)
     return times[len(times) // 2]
+
+
+def device_ms(fn, reps: int, kernel: str, setup=None):
+    """Mean device time of the kernel named ``kernel`` over ``reps`` runs,
+    from ``torch.profiler`` (CUPTI): the kernel's own time, without the
+    host's launch work that CUDA events around a call also hold when the
+    host is slower than the kernel.  None when the profiler sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn() if setup is None else (setup(), fn())          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in rows)
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / count
+            if count else None)
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S):
@@ -168,13 +203,82 @@ def assert_steps_equal(got, want, ctx: str) -> None:
               and torch.equal(x, y), f"{ctx}: {name} differs")
 
 
+def random_case(seed: int, dev, *, v: int, e: int, tmax: int, W: int,
+                hub: int = 0):
+    """A seeded graph of ``e`` random edges on ``v`` vertices, plus
+    ``hub`` edges on one pair, and W lanes: random windows (one empty,
+    one past every edge), k in 1..6, h in 0..3, warm or all-ones rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import TemporalGraph
+
+    rng = np.random.default_rng(seed)
+    u = np.concatenate([rng.integers(0, v, e), np.full(hub, 7)])
+    w = np.concatenate([rng.integers(0, v, e), np.full(hub, 11)])
+    g = TemporalGraph.from_edges(u, w, rng.integers(0, tmax, u.size),
+                                 num_vertices=v)
+    ts = rng.integers(0, tmax, W).astype(np.int32)
+    te = (ts + rng.integers(0, tmax, W)).astype(np.int32)
+    ts[0], te[0] = 0, -1
+    if W > 1:
+        ts[1], te[1] = tmax + 1, tmax + 5
+    k = rng.integers(1, 7, W).astype(np.int32)
+    h = rng.integers(0, 4, W).astype(np.int32)
+    alive = (rng.random((W, v)) < 0.9 if rng.random() < 0.5
+             else np.ones((W, v), dtype=bool))
+    t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+    return g.device_tel(device=dev), v, (t(alive), t(ts), t(te), t(k), t(h))
+
+
+def hold_step(tel, nv, args, ctx: str, errs: dict) -> None:
+    """One fused wave step against the plain step: bit-identical."""
+    import torch
+    from repro_torch.core.wave import make_composite_step, make_wave_step_fn
+
+    rf = make_wave_step_fn(tel, nv, use_kernel=True)(*args)
+    rp = make_composite_step(tel, nv)(*args)
+    torch.cuda.synchronize()
+    assert_steps_equal(rf, rp, f"wave_peel vs plain, {ctx}")
+    errs["wave_peel"] = max(errs["wave_peel"], max_err(rf, rp))
+
+
+def hold_segdeg(vals, seg, s: int, errs: dict, ctx: str,
+                exact64: bool = False) -> float:
+    """segdeg against its plain version: exact on 0/1 values; floats within
+    rtol=atol=1e-5 of ``index_add_`` in float32 or, where runs are long
+    enough for float32's own rounding to exceed that (``exact64``), of the
+    same sums in float64; two calls equal bit for bit.  Returns the float
+    max |diff| (0 for 0/1 values)."""
+    import torch
+    from repro_torch.kernels.segdeg.ops import banded_segsum, banded_segsum_ref
+
+    got = banded_segsum(vals, seg, s)
+    check(torch.equal(got, banded_segsum(vals, seg, s)),
+          f"segdeg {ctx}: two calls differ")
+    ones = bool(((vals == 0) | (vals == 1)).all())
+    if exact64 and not ones:
+        want = torch.zeros((s + 1, vals.shape[1]), dtype=torch.float64,
+                           device=vals.device)
+        want = want.index_add_(0, seg.clamp(max=s).long(),
+                               vals.double())[:s].float()
+    else:
+        want = banded_segsum_ref(vals, seg, s)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if ones:
+        check(torch.equal(got, want), f"segdeg 0/1 {ctx}")
+        errs["segdeg"] = max(errs["segdeg"], err)
+        return 0.0
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"segdeg float {ctx}: {err}")
+    return err
+
+
 def phase_kernels(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import TCQEngine, brute_force_query
     from repro_torch.core.wave import make_composite_step, make_wave_step_fn
     from repro_torch.graphs import planted_cores
-    from repro_torch.kernels.segdeg.ops import banded_segsum, banded_segsum_ref
 
     errs = {"wave_peel": 0.0, "segdeg": 0.0}
     for padded in (False, True):
@@ -192,8 +296,22 @@ def phase_kernels(dev) -> dict:
             assert_steps_equal(rf, rp, f"wave_peel vs plain, {ctx}")
             assert_steps_equal(rc, rf, f"composite(segdeg) vs fused, {ctx}")
             errs["wave_peel"] = max(errs["wave_peel"], max_err(rf, rp))
+            if s < 3:                   # the same lanes with h = 0 and 3
+                for h in (0, 3):
+                    hold_step(tel, nv, (alive, *lanes[:3],
+                                        torch.full_like(lanes[3], h)),
+                              f"{ctx}, h={h}", errs)
+    for W in (1, 33, 64):
+        tel, nv, args = random_case(W, dev, v=300, e=3000, tmax=80, W=W)
+        hold_step(tel, nv, args, f"W={W}", errs)
+    tel, nv, args = random_case(5, dev, v=500, e=5000, tmax=200, W=8,
+                                hub=50_000)
+    hub = int((tel.pair_id == tel.pair_id.bincount().argmax()).sum())
+    check(hub >= 50_000, f"hub pair has {hub} edges")
+    hold_step(tel, nv, args, f"hub pair of {hub} edges", errs)
     log(f"wave_peel: bit-identical to the plain step on "
-        f"{2 * len(FUZZ_SEEDS)} fuzz cases; composite with segdeg "
+        f"{2 * len(FUZZ_SEEDS)} fuzz cases, 12 with h = 0 or 3, W = 1, 33 "
+        f"and 64, and a pair of {hub} edges; composite with segdeg "
         "closures equal to the fused step")
 
     # 0/1 values (all the wave step feeds it) must be exact; floats may
@@ -206,17 +324,23 @@ def phase_kernels(dev) -> dict:
                                .astype(np.int32)).to(dev)  # ids >= s drop
         for vals in (rng.random((n, q)) < 0.5, rng.normal(0, 1, (n, q))):
             v = torch.from_numpy(vals.astype(np.float32)).to(dev)
-            got, want = banded_segsum(v, seg, s), banded_segsum_ref(v, seg, s)
-            err = float((got - want).abs().max())
-            if vals.dtype == bool:
-                check(torch.equal(got, want), f"segdeg 0/1 ({n},{s},{q})")
-                errs["segdeg"] = max(errs["segdeg"], err)
-            else:
-                check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                      f"segdeg float ({n},{s},{q}): {err}")
-                float_err = max(float_err, err)
-    log(f"segdeg: exact on 0/1 values; on floats max |diff| {float_err:.3g} "
-        "within allclose rtol=atol=1e-5")
+            float_err = max(float_err, hold_segdeg(v, seg, s, errs,
+                                                   f"({n},{s},{q})"))
+    # a hub run of 50,000 rows (across 49 to 782 row tiles) among short
+    # runs, which end on both sides of most tile edges
+    s = 3000
+    ids = np.concatenate([rng.integers(0, s + 2, 20_000),
+                          np.full(50_000, 1234)])
+    seg = torch.from_numpy(np.sort(ids).astype(np.int32)).to(dev)
+    for q in (1, 3, 4, 5, 64):
+        for vals in (rng.random((ids.size, q)) < 0.5,
+                     rng.normal(0, 1, (ids.size, q))):
+            v = torch.from_numpy(vals.astype(np.float32)).to(dev)
+            float_err = max(float_err, hold_segdeg(
+                v, seg, s, errs, f"hub run, Q={q}", exact64=True))
+    log(f"segdeg: exact on 0/1 values, deterministic, with a run of 50,000 "
+        f"rows and Q in 1, 3, 4, 5, 64; on floats max |diff| "
+        f"{float_err:.3g} within allclose rtol=atol=1e-5")
 
     g = planted_cores(seed=9)
     oracle = brute_force_query(g, 3, 1, 40)
@@ -409,16 +533,39 @@ def phase_profile(main: dict) -> None:
 def phase_timing(dev, main: dict, errs: dict) -> list:
     import numpy as np
     import torch
+    from repro_torch.core import TCQEngine
     from repro_torch.core.scheduler import autotune_wave
     from repro_torch.core.wave import make_composite_step, make_wave_step_fn
-    from repro_torch.kernels.segdeg.ops import banded_segsum, banded_segsum_ref
-    from repro_torch.kernels.wave_peel.ops import fused_step_cost, wave_peel
+    from repro_torch.kernels.segdeg.ops import (banded_segsum,
+                                                banded_segsum_ref,
+                                                segment_offsets)
+    from repro_torch.kernels.wave_peel.ops import (_check_tel,
+                                                   canonical_step_cost,
+                                                   fused_step_cost, tel_bands,
+                                                   wave_peel)
 
     eng, reqs = main["eng"], main["reqs"]
     lo = min(r["ts"] for r in reqs)
     hi = max(r["te"] for r in reqs)
     wt = eng._window_tel(lo, hi)                # the batch's union TEL
     tel, nv = wt.tel, wt.num_vertices
+    # what a cold batch adds: building the union TEL and its wave step
+    fresh = TCQEngine(main["g"])
+    t0 = time.perf_counter()
+    fresh._window_tel(lo, hi)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _check_tel(tel, nv)
+    check_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tel_bands(tel, nv)
+    torch.cuda.synchronize()
+    bands_ms = (time.perf_counter() - t0) * 1e3
+    log(f"union-window TEL build: {build_ms:.1f} ms host clock, of which "
+        f"the layout check {check_ms:.1f} ms and the band tables "
+        f"{bands_ms:.1f} ms")
+    del fresh
     W = autotune_wave(nv, wt.window_edges, num_queries=len(reqs))
     pick = [reqs[i % len(reqs)] for i in range(W)]
     lanes = [torch.tensor([r[f] for r in pick], dtype=torch.int32,
@@ -442,41 +589,83 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
     peel_ms = time_ms(lambda: wave_peel(tel, fused.bands, buf, *lanes), 20,
                       setup=refill)
     plain_ms = time_ms(lambda: plain(alive0, *lanes), 3)
-    cost = fused_step_cost(tel.t.shape[0], tel.num_pairs,
-                           tel.hp_src.shape[0], nv, lane_iters.tolist())
+    # where a launch's time goes: the same lanes with empty windows (no
+    # window search, nothing kept), and with k above every degree (the
+    # window counts, then two iterations)
+    empty = [torch.zeros_like(lanes[0]), torch.full_like(lanes[1], -1),
+             *lanes[2:]]
+    huge_k = [*lanes[:2], torch.full_like(lanes[2], 1 << 30), lanes[3]]
+    peel_dev = device_ms(lambda: wave_peel(tel, fused.bands, buf, *lanes),
+                         20, "wave_peel_kernel", setup=refill)
+    parts = {name: device_ms(lambda: wave_peel(tel, fused.bands, buf, *ln),
+                             20, "wave_peel_kernel", setup=refill)
+             for name, ln in (("empty windows", empty),
+                              ("k above every degree", huge_k))}
+    log(f"wave_peel at W={W}: {peel_ms:.4f} ms a call (CUDA events), "
+        f"device time {fmt_ms(peel_dev)} ({max(lane_iters.tolist())} "
+        "iterations); device time of the same lanes with "
+        + ", ".join(f"{n} {fmt_ms(ms)}" for n, ms in parts.items())
+        + f"; plain step {plain_ms:.4f} ms, so the call is "
+        f"{'not ' if peel_ms >= plain_ms else ''}below it and "
+        f"{'not ' if peel_ms > 0.95 else ''}at or below 0.95 ms")
+    # bound: what this kernel's pair-level formulation must move on this
+    # run's data; beside it the TPU kernel's dense count (earlier rows)
+    cost = canonical_step_cost(tel, fused.bands, lanes[0], lanes[1],
+                               lanes[3], lane_iters.tolist(), nv)
     peel_bound, peel_by = bound(cost["bytes"], cost["ops"])
+    dense = fused_step_cost(tel.t.shape[0], tel.num_pairs,
+                            tel.hp_src.shape[0], nv, lane_iters.tolist())
+    peel_dense, _ = bound(dense["bytes"], dense["ops"])
+    log(f"wave_peel bound {peel_bound:.5f} ms ({peel_by}: {cost['bytes']} "
+        f"bytes, {cost['ops']} operations); the dense count "
+        f"{peel_dense:.5f} ms ({dense['bytes']} bytes, {dense['ops']} "
+        "operations)")
 
     # segdeg at the composite's first pair-level reduction of this step
     win = (tel.t[None, :] >= lanes[0][:, None]) & \
         (tel.t[None, :] <= lanes[1][:, None])
     vals = (win & alive0[:, tel.src] & alive0[:, tel.dst]).T.to(
         torch.float32).contiguous()
+    # offsets as the composite's closures hold them: once per TEL
     seg, S = tel.pair_id, tel.num_pairs
-    got, want = banded_segsum(vals, seg, S), banded_segsum_ref(vals, seg, S)
+    off = segment_offsets(seg, S)
+    got = banded_segsum(vals, seg, S, offsets=off)
+    want = banded_segsum_ref(vals, seg, S)
     check(torch.equal(got, want), "segdeg at the main path's shape")
     errs["segdeg"] = max(errs["segdeg"], float((got - want).abs().max()))
-    seg_ms = time_ms(lambda: banded_segsum(vals, seg, S), 50)
+    seg_ms = time_ms(lambda: banded_segsum(vals, seg, S, offsets=off), 50)
+    seg_dev = device_ms(lambda: banded_segsum(vals, seg, S, offsets=off), 50,
+                        "segdeg_kernel")
     seg_plain_ms = time_ms(lambda: banded_segsum_ref(vals, seg, S), 50)
     clamped = seg.clamp(max=S)
     sink = torch.zeros((S + 1, W), dtype=torch.float32, device=dev)
     lib_ms = time_ms(lambda: sink.index_add_(0, clamped, vals), 50)
-    n = vals.shape[0]
-    seg_bound, seg_by = bound(4 * n * W + 4 * n + 4 * S * W, n * W)
-    log(f"segdeg timed at values [{n}, {W}] -> [{S}, {W}]")
+    # bound: the rows with an id below S (the kernel reads no other),
+    # their ids, the offsets and the output; beside it every row's
+    n, nvalid = vals.shape[0], int(off[-1])
+    seg_bound, seg_by = bound(4 * nvalid * W + 4 * nvalid + 4 * (S + 1)
+                              + 4 * S * W, nvalid * W)
+    seg_dense, _ = bound(4 * n * W + 4 * n + 4 * S * W, n * W)
+    log(f"segdeg timed at values [{n}, {W}] -> [{S}, {W}]: {seg_ms:.4f} ms "
+        f"a call (device time {fmt_ms(seg_dev)}), index_add_ {lib_ms:.4f} ms "
+        f"({'not ' if seg_ms > lib_ms else ''}at or below it), plain "
+        f"{seg_plain_ms:.4f} ms; bound {seg_bound:.5f} ms over the "
+        f"{nvalid} rows with an id below {S}, {seg_dense:.5f} ms over all")
 
     return [
         {"name": "wave_peel", "route": "cuda",
          "source": "src/repro_torch/kernels/wave_peel/csrc/wave_peel.cu",
          "replaces": "src/repro/kernels/wave_peel/kernel.py:179",
          "max_abs_err": errs["wave_peel"], "ms": peel_ms,
-         "plain_ms": plain_ms, "bound_ms": peel_bound, "bound_by": peel_by,
+         "device_ms": peel_dev, "plain_ms": plain_ms, "bound_ms": peel_bound,
+         "bound_by": peel_by, "dense_bound_ms": peel_dense,
          "library_ms": None},
         {"name": "segdeg", "route": "cuda",
          "source": "src/repro_torch/kernels/segdeg/csrc/segdeg.cu",
          "replaces": "src/repro/kernels/segdeg/kernel.py:109",
-         "max_abs_err": errs["segdeg"],
-         "ms": seg_ms, "plain_ms": seg_plain_ms, "bound_ms": seg_bound,
-         "bound_by": seg_by, "library_ms": lib_ms},
+         "max_abs_err": errs["segdeg"], "ms": seg_ms, "device_ms": seg_dev,
+         "plain_ms": seg_plain_ms, "bound_ms": seg_bound, "bound_by": seg_by,
+         "dense_bound_ms": seg_dense, "library_ms": lib_ms},
     ]
 
 
@@ -545,15 +734,17 @@ def hold_scan(la, bx, s0, what: str, reps: int, plain_reps: int) -> dict:
           f"ssm_scan at the {what} shape: max |diff| {err}")
     del got, want
     ms = time_ms(lambda: ssm_scan(la, bx, s0), reps)
+    dev_ms = device_ms(lambda: ssm_scan(la, bx, s0), reps, "ssm_scan_kernel")
     plain_ms = time_ms(lambda: ssm_scan_ref(la, bx, s0), plain_reps)
     nb, ns, nf = la.shape
     bound_ms, bound_by = bound(4 * (3 * nb * ns * nf + nb * nf),
                                3 * nb * ns * nf, F32_OPS_PER_S)
     log(f"ssm_scan at the {what} shape {list(la.shape)}: within "
         f"rtol=atol=1e-5 of the plain loop (max |diff| {err:.3g}); "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        f"{ms:.4f} ms a call (device time {fmt_ms(dev_ms)}), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_lm(dev) -> dict:
@@ -687,12 +878,15 @@ def main() -> int:
     log(smi.splitlines()[0])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    from repro_torch.kernels._build import library, library_path
+    from repro_torch.kernels._build import (library, library_path,
+                                            resource_usage)
 
     t0 = time.perf_counter()
     library()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s: "
         f"{library_path().relative_to(ROOT)}")
+    for name, usage in sorted(resource_usage().items()):
+        log(f"ptxas -v: {name}: {usage}")
 
     # full float32 matrix products, so the f32 model on the card can be
     # held to the CPU at 1e-4

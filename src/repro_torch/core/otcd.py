@@ -252,8 +252,8 @@ class TCQEngine:
             tel = DeviceTEL(pair_u=aux.pair_u, pair_v=aux.pair_v,
                             hp_src=aux.hp_src, hp_pair=aux.hp_pair, **dev)
             v_cap = aux.v_cap
-        seg_pair = make_banded_segsum(aux.pair_cap)
-        seg_vert = make_banded_segsum(v_cap)
+        seg_pair = make_banded_segsum(aux.pair_cap, tel.pair_id)
+        seg_vert = make_banded_segsum(v_cap, tel.hp_src)
         step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
                                  seg_vert=seg_vert,
                                  use_kernel=self._use_kernel, donate=True)

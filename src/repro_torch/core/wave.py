@@ -303,9 +303,9 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
 
         return make_fused_wave_step(tel, num_vertices, donate=donate)
     if seg_pair is None:
-        seg_pair = make_banded_segsum(tel.num_pairs)
+        seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
     if seg_vert is None:
-        seg_vert = make_banded_segsum(num_vertices)
+        seg_vert = make_banded_segsum(num_vertices, tel.hp_src)
     return make_composite_step(tel, num_vertices, seg_pair=seg_pair,
                                seg_vert=seg_vert, donate=donate)
 
@@ -330,9 +330,9 @@ def tcd_wave(tel: DeviceTEL, alive: torch.Tensor, ts, te, k, h,
         return WaveResult(r.alive, r.tti_lo, r.tti_hi, r.n_edges,
                           n_verts, r.iters)
     if seg_pair is None:
-        seg_pair = make_banded_segsum(tel.num_pairs)
+        seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
     if seg_vert is None:
-        seg_vert = make_banded_segsum(num_vertices)
+        seg_vert = make_banded_segsum(num_vertices, tel.hp_src)
     q, dev = alive.shape[0], alive.device
     alive, ea, iters = peel_to_fixpoint(
         tel, alive, lanes(ts, q, dev), lanes(te, q, dev), k, h,

@@ -5,8 +5,10 @@ Every ``kernels/*/csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 linked into one shared library with a plain C interface.  The library goes
 to ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``); its file name carries a hash of the sources and flags, so
-an edited source never loads a stale library.  A failed build raises:
-nothing falls back to the plain versions.
+an edited source never loads a stale library.  ``ptxas -v`` reports each
+kernel's registers, shared memory and spills; the report is kept beside
+the library (:func:`resource_usage`).  A failed build raises: nothing
+falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,7 +26,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources():
@@ -57,9 +60,10 @@ def _build(out: Path) -> None:
                                    str(o)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(srcs, objs)]
-        errors = []
+        errors, logs = [], []
         for src, proc in zip(srcs, procs):
             log, _ = proc.communicate()
+            logs.append(log)
             if proc.returncode:
                 errors.append(f"{src}:\n{log}")
         if errors:
@@ -71,6 +75,7 @@ def _build(out: Path) -> None:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
                                f"{link.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(logs))
         os.replace(lib, out)        # atomic: concurrent builds agree
 
 
@@ -83,11 +88,31 @@ def library() -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+def resource_usage() -> dict:
+    """``{kernel: "N registers, ... spill ..."}`` from the ``ptxas -v``
+    report of the current library's build."""
+    out, name, usage = {}, None, {}
+    report = library_path().with_suffix(".ptxas.txt")
+    for line in report.read_text().splitlines() if report.exists() else ():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"[a-z][a-z0-9_]*_kernel", m.group(1))
+            name = k.group(0) if k else m.group(1)
+            usage = out.setdefault(name, {})
+        elif name and "spill stores" in line:
+            usage["spills"] = line.strip()
+        elif name and "Used" in line:
+            usage["used"] = line.split(":", 1)[1].strip()
+    return {k: "; ".join(v[f] for f in ("used", "spills") if f in v)
+            for k, v in out.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def bind(name: str, int_args: frozenset, n_args: int):
     """The C entry ``name`` with its ``argtypes`` set: ``c_int`` at the
     argument positions in ``int_args``, ``c_void_p`` (pointers and the
-    stream) everywhere else; it returns the launch's CUDA error code."""
+    stream) everywhere else; it returns an int (a launch's CUDA error
+    code)."""
     fn = getattr(library(), name)
     fn.argtypes = [ctypes.c_int if i in int_args else ctypes.c_void_p
                    for i in range(n_args)]

@@ -2,4 +2,4 @@
 
 from repro_torch.kernels.wave_peel.ops import (fused_step_cost,  # noqa: F401
                                                make_fused_wave_step,
-                                               segment_bounds, wave_peel)
+                                               tel_bands, wave_peel)

@@ -8,13 +8,15 @@ not installed: ``python -m pytest -q tests/test_torch_cuda.py`` on the
 machine with the card.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import TCQEngine, TemporalGraph  # noqa: E402
-from repro_torch.core.graph import pow2_capacity  # noqa: E402
 from repro_torch.core.wave import (make_composite_step,  # noqa: E402
                                    make_wave_step_fn)
 from repro_torch.graphs import planted_cores, powerlaw_temporal  # noqa: E402
@@ -27,6 +29,12 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ssm import mamba_mix  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+# the fuzz cases chip_smoke.py holds the kernels to, from its one copy
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -41,36 +49,9 @@ def cuda():
 
 def _case(seed, capacity_padding, dev):
     """A fuzz case drawn like tests/test_kernels.py's fused-vs-composite
-    sweep: (tel, V, alive, ts, te, k, h) on ``dev``."""
-    rng = np.random.default_rng(seed)
-    v = int(rng.integers(3, 60))
-    e = int(rng.integers(5, 400))
-    tmax = int(rng.integers(4, 60))
-    u, w = rng.integers(0, v, e), rng.integers(0, v, e)
-    keep = u != w
-    u, w = u[keep], w[keep]
-    if u.size == 0:
-        u, w = np.array([0]), np.array([v - 1])
-    g = TemporalGraph.from_edges(u, w, rng.integers(0, tmax, u.size),
-                                 num_vertices=v)
-    nv, caps = g.num_vertices, {}
-    if capacity_padding:
-        nv = pow2_capacity(g.num_vertices)
-        caps = dict(edge_capacity=pow2_capacity(g.num_edges),
-                    pair_capacity=pow2_capacity(g.num_pairs),
-                    vertex_capacity=nv)
-    rng.choice([4, 8])                   # the TPU kernel's w_tile draw
-    W = int(rng.integers(1, 12))
-    ts = rng.integers(0, tmax, W).astype(np.int32)
-    te = (ts + rng.integers(0, tmax, W)).astype(np.int32)
-    empty = rng.random(W) < 0.25
-    ts[empty], te[empty] = 0, -1
-    k = rng.integers(1, 5, W).astype(np.int32)
-    h = rng.integers(1, 3, W).astype(np.int32)
-    alive = (rng.random((W, nv)) < 0.8 if rng.random() < 0.5
-             else np.ones((W, nv), dtype=bool))
-    args = tuple(torch.from_numpy(a).to(dev) for a in (alive, ts, te, k, h))
-    return g.device_tel(device=dev, **caps), nv, args
+    sweep (chip_smoke.fuzz_case): (tel, V, (alive, ts, te, k, h))."""
+    tel, nv, *args = chip_smoke.fuzz_case(seed, capacity_padding, dev)
+    return tel, nv, tuple(args)
 
 
 def _assert_steps_equal(got, want, ctx):
@@ -112,6 +93,144 @@ def test_segdeg_kernel_matches_plain_version(cuda, n, s, q):
     torch.testing.assert_close(segdeg.banded_segsum(floats, seg, s),
                                segdeg.banded_segsum_ref(floats, seg, s),
                                rtol=1e-5, atol=1e-5)
+
+
+# a seeded graph with an optional hub pair and W lanes of random windows,
+# k and h (chip_smoke.random_case): (tel, V, (alive, ts, te, k, h))
+_wide_case = chip_smoke.random_case
+
+
+@pytest.mark.parametrize("h", [0, 3])
+@pytest.mark.parametrize("seed,padded", [(1000, False), (1002, False),
+                                         (2001, True), (2004, True)])
+def test_wave_peel_kernel_h_extremes(cuda, seed, padded, h):
+    tel, nv, (alive, ts, te, k, _) = _case(seed, padded, cuda)
+    args = (alive, ts, te, k, torch.full_like(ts, h))
+    _assert_steps_equal(make_wave_step_fn(tel, nv, use_kernel=True)(*args),
+                        make_composite_step(tel, nv)(*args), (seed, h))
+
+
+@pytest.mark.parametrize("W", [1, 33, 64])
+def test_wave_peel_kernel_wide_waves(cuda, W):
+    tel, nv, args = _wide_case(W, cuda, v=300, e=3000, tmax=80, W=W)
+    _assert_steps_equal(make_wave_step_fn(tel, nv, use_kernel=True)(*args),
+                        make_composite_step(tel, nv)(*args), W)
+
+
+def test_wave_peel_kernel_hub_pair(cuda):
+    tel, nv, args = _wide_case(5, cuda, v=500, e=5000, tmax=200, W=8,
+                               hub=50_000)
+    assert int(tel.pair_id.bincount().max()) >= 50_000
+    for donate in (False, True):
+        buf = args[0].clone()
+        got = make_wave_step_fn(tel, nv, use_kernel=True,
+                                donate=donate)(buf, *args[1:])
+        want = make_composite_step(tel, nv)(args[0], *args[1:])
+        _assert_steps_equal(got, want, f"hub, donate={donate}")
+        assert torch.equal(buf, want.alive if donate else args[0])
+
+
+def test_wave_peel_refuses_more_vertices_than_it_holds(cuda):
+    v = peel.max_vertices()
+    assert v >= 300_000
+    g = TemporalGraph.from_edges([0], [1], [5], num_vertices=v + 1)
+    with pytest.raises(ValueError, match="shared"):
+        peel.make_fused_wave_step(g.device_tel(device=cuda), v + 1)
+    g = TemporalGraph.from_edges([0], [v - 1], [5], num_vertices=v)
+    tel = g.device_tel(device=cuda)
+    alive = torch.ones((2, v), dtype=torch.bool, device=cuda)
+    _assert_steps_equal(
+        make_wave_step_fn(tel, v, use_kernel=True)(alive, 0, 9, 1, 1),
+        make_composite_step(tel, v)(alive, 0, 9, 1, 1), "largest V")
+
+
+@pytest.mark.parametrize("q", [1, 3, 4, 5, 64])
+def test_segdeg_kernel_long_runs(cuda, q):
+    """A run of 50,000 rows (across 49 to 782 row tiles) among short ones
+    that end on both sides of most tile edges: exact on 0/1, floats
+    within rtol=atol=1e-5 of the same sums in float64 (a float32 sum of
+    50,000 values carries its own rounding error above that), and two
+    calls equal bit for bit."""
+    rng = np.random.default_rng(q)
+    s = 3000
+    ids = np.sort(np.concatenate([rng.integers(0, s + 2, 20_000),
+                                  np.full(50_000, 1234)]))
+    seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    ones = torch.from_numpy(rng.random((ids.size, q)) < 0.5).to(cuda).float()
+    floats = torch.from_numpy(rng.normal(0, 1, (ids.size, q))
+                              .astype(np.float32)).to(cuda)
+    got = segdeg.banded_segsum(ones, seg, s)
+    assert torch.equal(got, segdeg.banded_segsum_ref(ones, seg, s))
+    got = segdeg.banded_segsum(floats, seg, s)
+    assert torch.equal(got, segdeg.banded_segsum(floats, seg, s))
+    want = torch.zeros((s + 1, q), dtype=torch.float64, device=cuda)
+    want = want.index_add_(0, seg.clamp(max=s).long(), floats.double())
+    torch.testing.assert_close(got, want[:s].float(), rtol=1e-5, atol=1e-5)
+
+
+def test_segdeg_offsets_held_once_per_id_tensor(cuda):
+    rng = np.random.default_rng(4)
+    seg = torch.from_numpy(np.sort(rng.integers(0, 60, 900))
+                           .astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random((900, 4)) < 0.5).to(cuda).float()
+    fn = segdeg.make_banded_segsum(50, seg)
+    want = segdeg.banded_segsum_ref(vals, seg, 50)
+    assert torch.equal(fn(vals, seg), want)
+    with pytest.raises(ValueError, match="another"):
+        fn(vals, seg.clone())                          # another id tensor
+
+
+@pytest.mark.parametrize("ids", [[-1, 0, 0, 2, 3], [0, 2, 1, 3, 3]])
+def test_segdeg_refuses_negative_or_unsorted_ids(cuda, ids):
+    seg = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    vals = torch.ones((len(ids), 4), device=cuda)
+    with pytest.raises(ValueError, match="sorted ascending and >= 0"):
+        segdeg.banded_segsum(vals, seg, 4)
+    with pytest.raises(ValueError, match="sorted ascending and >= 0"):
+        segdeg.make_banded_segsum(4, seg)
+
+
+def test_segdeg_ids_out_of_range_are_skipped(cuda):
+    """With offsets that do not fit the ids (a negative id and ids near
+    2**30 below off[S]) the kernel gives wrong sums at worst: it writes
+    nothing far outside ``out`` (which would fault), and the next call
+    on the stream is right."""
+    seg = torch.tensor([-5, 1, 1 << 30, (1 << 30) + 1, 2, 2],
+                       dtype=torch.int32, device=cuda)
+    vals = torch.ones((6, 2), device=cuda)
+    off = torch.tensor([0, 1, 2, 6], dtype=torch.int32, device=cuda)
+    segdeg.banded_segsum(vals, seg, 3, offsets=off)
+    torch.cuda.synchronize()
+    good = torch.tensor([0, 1, 2, 2, 5], dtype=torch.int32, device=cuda)
+    assert torch.equal(segdeg.banded_segsum(vals[:5], good, 3),
+                       torch.tensor([[1.0, 1], [1, 1], [2, 2]], device=cuda))
+
+
+def test_segdeg_two_streams_at_once(cuda):
+    """Launches on two streams that overlap each keep their own ticket, so
+    every result is whole and the next launch on either stream is too."""
+    rng = np.random.default_rng(6)
+    s = 2000
+    seg = torch.from_numpy(np.sort(np.concatenate([
+        rng.integers(0, s, 200_000), np.full(100_000, 77)]))
+        .astype(np.int32)).to(cuda)
+    vals = [torch.from_numpy(rng.random((seg.shape[0], 4)) < 0.5)
+            .to(cuda).float() for _ in range(2)]
+    want = [segdeg.banded_segsum_ref(v, seg, s) for v in vals]
+    off = segdeg.segment_offsets(seg, s)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(segdeg.banded_segsum(vals[i], seg, s,
+                                                    offsets=off))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            assert torch.equal(got, want[i])
+    assert torch.equal(segdeg.banded_segsum(vals[0], seg, s), want[0])
 
 
 def _negative_t_graph():
