@@ -41,6 +41,20 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    card at the prefill and decode shapes, on the scan inputs those passes
    build, profiles one more prefill and four decode steps, and holds the
    smoke-size model on the card to the same model on the CPU;
+7. serves TCQs on the phase-3 graph through ``launch/serve.py``: the
+   closed loop (``serve_closed_loop``, concurrency 8, 120 requests, k=12,
+   64-day windows) on the full graph, whose throughput is the service's
+   capacity; the open loop (``serve_stream``, the same windows arriving
+   at half that capacity) starting from the edges before day 2,200 while
+   the rest arrive in 4 ``push_edges`` batches, with a write-ahead
+   journal; the same windows again after the last ingest (core-cache
+   hits, and a fully cached ticket launches nothing); recovery from the
+   open loop's journal and from a crash mid-tape (``CrashingWAL``); and
+   two chaos runs under the degradation ladder (a fused-kernel failure,
+   a silent corruption caught by the tripwire), each of which must raise
+   out of the service and be logged once, with no segdeg launch.  Every
+   ticket equals a cache-free engine's ``query_batch`` on its pinned
+   snapshot; the healthy paths hold no ladder and launch no segdeg;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -101,26 +115,33 @@ def time_ms(fn, reps: int, setup=None) -> float:
 
 
 def device_ms(fn, reps: int, kernel: str, setup=None):
-    """Mean device time of the kernel named ``kernel`` over ``reps`` runs,
-    from ``torch.profiler`` (CUPTI): the kernel's own time, without the
-    host's launch work that CUDA events around a call also hold when the
-    host is slower than the kernel.  None when the profiler sees none."""
+    """(mean device time, trace) of the kernel named ``kernel`` over
+    ``reps`` runs, from ``torch.profiler`` (CUPTI): the kernel's own time,
+    without the host's launch work that CUDA events around a call also
+    hold when the host is slower than the kernel.  A trace that caught no
+    kernel is logged and taken once more; ``trace`` says which reading
+    the time is (1 or 2), and the time is None when both saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn() if setup is None else (setup(), fn())          # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if setup is not None:
-                setup()
-            fn()
+    for trace in (1, 2):
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    count = sum(e.count for e in rows)
-    return (sum(e.self_device_time_total for e in rows) / 1e3 / count
-            if count else None)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if setup is not None:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if kernel in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        count = sum(e.count for e in rows)
+        if count:
+            return (sum(e.self_device_time_total for e in rows) / 1e3
+                    / count, trace)
+        log(f"device_ms: trace {trace} of {reps} {kernel} runs caught no "
+            "kernel")
+    return None, None
 
 
 def fmt_ms(ms) -> str:
@@ -372,12 +393,14 @@ def run_path(fn):
     and read just after: (result, wall s, {kernel: launches})."""
     import torch
 
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
+        (lambda: None)
+    sync()
     for w in wrappers().values():
         w.launches = 0
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t0
     return out, wall, {k: w.launches for k, w in wrappers().items()}
 
@@ -595,10 +618,11 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
     empty = [torch.zeros_like(lanes[0]), torch.full_like(lanes[1], -1),
              *lanes[2:]]
     huge_k = [*lanes[:2], torch.full_like(lanes[2], 1 << 30), lanes[3]]
-    peel_dev = device_ms(lambda: wave_peel(tel, fused.bands, buf, *lanes),
-                         20, "wave_peel_kernel", setup=refill)
+    peel_dev, peel_trace = device_ms(
+        lambda: wave_peel(tel, fused.bands, buf, *lanes), 20,
+        "wave_peel_kernel", setup=refill)
     parts = {name: device_ms(lambda: wave_peel(tel, fused.bands, buf, *ln),
-                             20, "wave_peel_kernel", setup=refill)
+                             20, "wave_peel_kernel", setup=refill)[0]
              for name, ln in (("empty windows", empty),
                               ("k above every degree", huge_k))}
     log(f"wave_peel at W={W}: {peel_ms:.4f} ms a call (CUDA events), "
@@ -634,8 +658,9 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
     check(torch.equal(got, want), "segdeg at the main path's shape")
     errs["segdeg"] = max(errs["segdeg"], float((got - want).abs().max()))
     seg_ms = time_ms(lambda: banded_segsum(vals, seg, S, offsets=off), 50)
-    seg_dev = device_ms(lambda: banded_segsum(vals, seg, S, offsets=off), 50,
-                        "segdeg_kernel")
+    seg_dev, seg_trace = device_ms(
+        lambda: banded_segsum(vals, seg, S, offsets=off), 50,
+        "segdeg_kernel")
     seg_plain_ms = time_ms(lambda: banded_segsum_ref(vals, seg, S), 50)
     clamped = seg.clamp(max=S)
     sink = torch.zeros((S + 1, W), dtype=torch.float32, device=dev)
@@ -657,13 +682,15 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
          "source": "src/repro_torch/kernels/wave_peel/csrc/wave_peel.cu",
          "replaces": "src/repro/kernels/wave_peel/kernel.py:179",
          "max_abs_err": errs["wave_peel"], "ms": peel_ms,
-         "device_ms": peel_dev, "plain_ms": plain_ms, "bound_ms": peel_bound,
+         "device_ms": peel_dev, "device_trace": peel_trace,
+         "plain_ms": plain_ms, "bound_ms": peel_bound,
          "bound_by": peel_by, "dense_bound_ms": peel_dense,
          "library_ms": None},
         {"name": "segdeg", "route": "cuda",
          "source": "src/repro_torch/kernels/segdeg/csrc/segdeg.cu",
          "replaces": "src/repro/kernels/segdeg/kernel.py:109",
          "max_abs_err": errs["segdeg"], "ms": seg_ms, "device_ms": seg_dev,
+         "device_trace": seg_trace,
          "plain_ms": seg_plain_ms, "bound_ms": seg_bound, "bound_by": seg_by,
          "dense_bound_ms": seg_dense, "library_ms": lib_ms},
     ]
@@ -734,7 +761,8 @@ def hold_scan(la, bx, s0, what: str, reps: int, plain_reps: int) -> dict:
           f"ssm_scan at the {what} shape: max |diff| {err}")
     del got, want
     ms = time_ms(lambda: ssm_scan(la, bx, s0), reps)
-    dev_ms = device_ms(lambda: ssm_scan(la, bx, s0), reps, "ssm_scan_kernel")
+    dev_ms, trace = device_ms(lambda: ssm_scan(la, bx, s0), reps,
+                              "ssm_scan_kernel")
     plain_ms = time_ms(lambda: ssm_scan_ref(la, bx, s0), plain_reps)
     nb, ns, nf = la.shape
     bound_ms, bound_by = bound(4 * (3 * nb * ns * nf + nb * nf),
@@ -744,6 +772,7 @@ def hold_scan(la, bx, s0, what: str, reps: int, plain_reps: int) -> dict:
         f"{ms:.4f} ms a call (device time {fmt_ms(dev_ms)}), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_trace": trace,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -855,6 +884,373 @@ def phase_lm(dev) -> dict:
     return {"by_path": by_path, "entry": entry}
 
 
+# ------------------------------------------- phase 7: TCQ serving path
+SERVE_CUT_DAY = 2_200       # serving starts from the edges before this day
+SERVE_BATCHES = 4           # the rest arrive as this many push_edges
+
+
+def ladders(svc) -> list:
+    """The degradation ladders the service's engine holds (none without
+    ``resilience``)."""
+    from repro_torch.core.wave import DegradationLadder
+
+    return [wt.step_fn for wt in svc.engine._win_cache.values()
+            if isinstance(wt.step_fn, DegradationLadder)]
+
+
+def digest(res):
+    """A result's cores as comparable data: (TTI, vertices, edges)."""
+    return sorted((key, tuple(c.vertices.tolist()), int(c.n_edges))
+                  for key, c in res.by_tti().items())
+
+
+def pcts(tickets, wall: float) -> dict:
+    import numpy as np
+
+    lat = np.array([tk.latency_s for tk in tickets]) if tickets else \
+        np.array([0.0])
+    return {"n": len(tickets), "qps": len(tickets) / wall if wall else 0.0,
+            "p50_ms": 1e3 * float(np.quantile(lat, .50)),
+            "p95_ms": 1e3 * float(np.quantile(lat, .95)),
+            "p99_ms": 1e3 * float(np.quantile(lat, .99))}
+
+
+def serve_tape(reqs, batches):
+    """A poll-driven tape (no wall clock): the requests in order, one
+    ingest batch after every quarter of them."""
+    ops, step = [], max(1, len(reqs) // max(1, len(batches)))
+    for i, r in enumerate(reqs):
+        ops.append(("submit", {k: r[k] for k in ("k", "ts", "te")}))
+        if (i + 1) % step == 0 and (i + 1) // step <= len(batches):
+            ops.append(("edges", batches[(i + 1) // step - 1]))
+    return ops
+
+
+def drive_tape(svc, ops, tickets=None):
+    """Feed ``ops`` to ``svc`` one per poll; returns {id: ticket}."""
+    tickets = {} if tickets is None else tickets
+    state = {"i": 0}
+
+    def poll(s):
+        if state["i"] < len(ops):
+            op = ops[state["i"]]
+            state["i"] += 1
+            if op[0] == "submit":
+                tk = s.submit(dict(op[1]))
+                tickets[tk.id] = tk
+            else:
+                s.push_edges(*op[1])
+
+    while state["i"] < len(ops) or svc.pending:
+        svc.run_until_idle(poll)
+    return tickets
+
+
+def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
+                n_requests: int = 120, load: float = 0.5, k: int = 12,
+                span: int = 64, seed: int = 11) -> dict:
+    """The port's serving stack on ``dev`` through ``launch/serve.py``:
+    the closed loop, whose throughput sets the open loop's rate (``load``
+    times it), the open loop over a growing graph with a journal, a
+    replay of its windows after the last ingest, recovery from the
+    journal and from a crash mid-tape, and two chaos runs under the
+    degradation ladder; every ticket held to a cache-free engine on its
+    pinned snapshot."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import (ResilienceConfig, StepDivergence,
+                                  TCQEngine, TCQService, TemporalGraph,
+                                  WriteAheadLog)
+    from repro_torch.core.faultinject import (CrashingWAL, FaultPlan,
+                                              InjectedCrash, KernelFault,
+                                              rung_faults)
+    from repro_torch.data import TCQRequestStream
+    from repro_torch.launch.serve import serve_closed_loop, serve_stream
+
+    on_card = dev.type == "cuda"
+    keep = g.t < cut_day
+    g0 = TemporalGraph.from_edges(g.src[keep], g.dst[keep], g.t[keep],
+                                  num_vertices=g.num_vertices)
+    rest = np.flatnonzero(~keep)
+    rest = rest[np.argsort(g.t[rest], kind="stable")]
+    batches = [(g.src[c], g.dst[c], g.t[c])
+               for c in np.array_split(rest, SERVE_BATCHES)]
+    snaps = [g0]                    # the snapshot of every epoch
+    for u, v, t in batches:
+        snaps.append(snaps[-1].add_edges(u, v, t))
+    check(snaps[-1].num_edges == g.num_edges, "ingest lost edges")
+    stream = TCQRequestStream(int(g0.unique_ts[0]),
+                              t_max=int(g.unique_ts[-1]), k=k, span=span,
+                              seed=seed)
+    windows = list(stream.requests(n_requests))
+    by_path = {}
+    fresh = {}                      # epoch -> cache-free engine
+
+    def reference(epoch: int, tickets) -> None:
+        """Each ticket's cores equal a fresh cache-free engine's
+        query_batch on the ticket's pinned snapshot."""
+        eng = fresh.get(epoch)
+        if eng is None:
+            eng = fresh[epoch] = TCQEngine(snaps[epoch], device=dev)
+        want = eng.query_batch([{"k": tk.k, "h": tk.h, "ts": tk.ts,
+                                 "te": tk.te} for tk in tickets])
+        for tk, w in zip(tickets, want):
+            check(tk.status == "done" and digest(tk.result) == digest(w),
+                  f"ticket {tk.id} (epoch {epoch}, [{tk.ts}, {tk.te}]) "
+                  "differs from a cache-free engine on its snapshot")
+
+    def held(tickets, what: str, epoch_of=lambda tk: tk.epoch) -> None:
+        by_epoch = {}
+        for tk in tickets:
+            by_epoch.setdefault(epoch_of(tk), []).append(tk)
+        for epoch, tks in sorted(by_epoch.items()):
+            reference(epoch, tks)
+        log(f"{what}: {len(tickets)} tickets over epochs "
+            f"{sorted(by_epoch)}, every one equal to a cache-free engine "
+            "on its pinned snapshot")
+
+    def expect(path, launches, svc=None, *, peel=True):
+        """A healthy path: its kernel ran (or, cached, did not), segdeg
+        and ssm_scan never, and the service holds no ladder."""
+        by_path[path] = launches
+        check(svc is None or not ladders(svc), f"{path}: a ladder")
+        if not on_card:
+            return
+        check((launches["wave_peel"] > 0) == peel,
+              f"{path}: wave_peel launched {launches['wave_peel']} times")
+        check(launches["segdeg"] == 0,
+              f"{path}: segdeg launched {launches['segdeg']} times")
+        check(launches["ssm_scan"] == 0, f"{path}: ssm_scan launched")
+
+    def pool_report(svc, what: str, wall: float, tickets) -> None:
+        occ = [p["occupancy"] for p in svc.pool_log if p["device_steps"]]
+        cc = svc.engine.stats().get("core_cache") or {}
+        p = pcts(tickets, wall)
+        log(f"{what}: {p['n']} requests in {wall:.3f}s ({p['qps']:.2f} "
+            f"qps sustained); latency p50 {p['p50_ms']:.1f} ms, p95 "
+            f"{p['p95_ms']:.1f} ms, p99 {p['p99_ms']:.1f} ms; "
+            f"{len(svc.pool_log)} pools, mean lane occupancy "
+            f"{np.mean(occ) if occ else 0.0:.2f}, "
+            f"{sum(q['admitted_midflight'] for q in svc.pool_log)} "
+            f"mid-flight admissions; core cache hit rate "
+            f"{cc.get('hit_rate', 0.0):.3f} ({cc.get('hits', 0)} hits, "
+            f"{cc.get('dominance_hits', 0)} by dominance, "
+            f"{cc.get('invalidated', 0)} invalidated, "
+            f"{cc.get('rekeyed', 0)} re-keyed; {cc.get('n_cores', 0)} "
+            f"cores in {cc.get('bytes', 0)} bytes and "
+            f"{cc.get('n_cells', 0)} cells held, "
+            f"{cc.get('evicted_cores', 0)} cores and "
+            f"{cc.get('evicted_cells', 0)} cells evicted)")
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="serve-", dir=root))
+    try:
+        # -- closed loop on the final graph: the service's capacity
+        (csvc, ctk, crep), _, n = run_path(
+            lambda: serve_closed_loop(snaps[-1], windows, concurrency=8,
+                                      device=dev))
+        check(crep["completed"] == n_requests and crep["shed"] == 0,
+              f"closed loop: {crep['completed']} done, {crep['shed']} shed")
+        expect("serve_closed_loop", n, csvc)
+        log(f"closed loop (concurrency 8): {crep['completed']} of "
+            f"{crep['offered']} in {crep['wall_s']:.3f}s "
+            f"({crep['qps']:.2f} qps), shed rate {crep['shed_rate']:.3f}, "
+            f"{crep['timeouts']} timeouts; latency p50 "
+            f"{crep['p50_ms']:.1f} ms, p95 {crep['p95_ms']:.1f} ms, p99 "
+            f"{crep['p99_ms']:.1f} ms")
+        held(ctk, "closed loop", lambda tk: len(batches))
+        if on_card:
+            profiled(lambda: serve_closed_loop(snaps[-1], windows,
+                                               concurrency=8, device=dev),
+                     "the closed loop again")
+
+        # -- open loop at a share of that capacity, with the journal,
+        # ingest while requests fly
+        qps = load * crep["qps"]
+        reqs = list(stream.open_loop(n_requests, qps=qps))
+        log(f"open loop: {g0.num_edges} edges before day {cut_day} at "
+            f"start, {rest.size} more in {len(batches)} push_edges batches "
+            f"while {n_requests} requests (k={k}, {span}-day windows) "
+            f"arrive at {qps:.3f}/s ({load:g} x the closed loop's "
+            "throughput)")
+        wal_dir = str(tmp / "wal")
+        (svc, served, wall), _, n = run_path(lambda: serve_stream(
+            snaps[0], reqs, qps=qps, ingest=iter(batches), wal_dir=wal_dir,
+            fsync="batch", device=dev))
+        check(svc.engine.device.type == dev.type, "service off the card")
+        check(len(served) == n_requests and svc.epoch == len(batches),
+              f"open loop served {len(served)} at epoch {svc.epoch}")
+        check(svc.engine.resilience_events() == [], "ladder events")
+        expect("serve_open_loop", n, svc)
+        pool_report(svc, "open loop", wall, served)
+        held(served, "open loop")
+        crash_image = str(tmp / "crash-image")
+        shutil.copytree(wal_dir, crash_image)
+
+        # -- the same windows again, after the last ingest
+        cc0 = dict(svc.engine.core_cache.stats())
+        (_, replay, rwall), _, n = run_path(lambda: serve_stream(
+            None, reqs, qps=qps, svc=svc, warm=False))
+        cc1 = svc.engine.core_cache.stats()
+        hits = (cc1["hits"] + cc1["dominance_hits"]
+                - cc0["hits"] - cc0["dominance_hits"])
+        probes = hits + cc1["misses"] - cc0["misses"]
+        check(hits > 0, "replay: no core-cache hit")
+        expect("serve_replay", n, svc)
+        pool_report(svc, "replay after the last ingest", rwall, replay)
+        held(replay, "replay")
+        full = [tk for tk in replay if tk.result.stats.cells_cached > 0
+                and tk.result.stats.cells_evaluated == 0]
+        log(f"replay: {hits} core-cache hits of {probes} probes (hit "
+            f"rate {hits / max(1, probes):.3f}), {len(full)} of "
+            f"{len(replay)} tickets served from the cache alone")
+        check(full, "replay: no ticket served from the cache alone")
+        tk0 = full[0]
+        (one, _, n) = run_path(lambda: (
+            svc.submit({"k": tk0.k, "ts": tk0.ts, "te": tk0.te}),
+            svc.run_until_idle())[0])
+        check(one.result.stats.cells_evaluated == 0, "cached ticket peeled")
+        expect("serve_cached_ticket", n, svc, peel=False)
+        check(digest(one.result) == digest(tk0.result), "cached ticket")
+
+        # -- recovery from the open loop's journal
+        (rsvc, _, n) = run_path(
+            lambda: TCQService.recover(crash_image, device=dev))
+        rep = rsvc.recovery_report
+        check(rsvc.engine.device.type == dev.type, "recovered off the card")
+        check(rsvc.epoch == len(batches) and rsvc.graph.fingerprint()
+              == snaps[-1].fingerprint(), "recovered graph differs")
+        log(f"recover: snapshot seq {rep['snapshot_seq']} + "
+            f"{rep['wal_records']} journal records in "
+            f"{1e3 * rep['recover_s']:.1f} ms, {rep['pending_after']} "
+            "tickets re-queued")
+        by_path["serve_recover"] = n
+        (redo, _, n) = run_path(rsvc.run_until_idle)
+        want = {tk.id: tk for tk in served}
+        redo = [tk for tk in redo if tk.id in want]
+        check(len(redo) == n_requests, f"recovered {len(redo)} tickets")
+        for tk in redo:
+            check(tk.epoch == want[tk.id].epoch and digest(tk.result)
+                  == digest(want[tk.id].result), f"recovered {tk.id}")
+        expect("serve_recovered_drain", n, rsvc)
+        more = [{"k": r["k"], "ts": r["ts"] + 7, "te": r["te"] + 7}
+                for r in reqs[:8]]
+        got = [rsvc.submit(r) for r in more]
+        rsvc.run_until_idle()
+        base = [svc.submit(r) for r in more]
+        svc.run_until_idle()
+        check([digest(t.result) for t in got]
+              == [digest(t.result) for t in base],
+              "recovered service drains differ from the uninterrupted one")
+        log(f"recovered drains: {len(redo)} re-queued tickets equal the "
+            "open loop's, and 8 further requests equal the uninterrupted "
+            "service's")
+        rsvc.wal.close()
+        svc.wal.close()
+
+        # -- a crash mid-tape, then recovery
+        ops = serve_tape(reqs[:16], batches)
+        clean = drive_tape(TCQService(snaps[0], device=dev), ops)
+        n_rec = sum(1 for op in ops if op[0] == "edges") + 10
+        cdir = str(tmp / "crash")
+        killer = CrashingWAL(WriteAheadLog(cdir, fsync="batch"),
+                             crash_after_records=n_rec)
+        seen = {}
+        try:
+            drive_tape(TCQService(snaps[0], device=dev, wal=killer), ops,
+                       seen)
+            check(False, "the injected crash never fired")
+        except InjectedCrash:
+            pass
+        (csvc2, _, n) = run_path(
+            lambda: TCQService.recover(cdir, device=dev))
+        after = {tk.id: tk for tk in csvc2.run_until_idle()}
+        done = {**{i: t for i, t in seen.items() if t.done}, **after}
+        check(set(done) == set(range(len(done))) and len(done) > 0,
+              f"crash recovery lost admissions: {sorted(done)}")
+        for i, tk in done.items():
+            check(tk.epoch == clean[i].epoch and digest(tk.result)
+                  == digest(clean[i].result), f"crash-recovered {i}")
+        by_path["serve_crash_recover"] = n
+        log(f"crash after journal record {n_rec}: recover in "
+            f"{1e3 * csvc2.recovery_report['recover_s']:.1f} ms, "
+            f"{len(done)} admissions equal the uninterrupted tape's")
+        csvc2.wal.close()
+
+        # -- chaos: one fused failure, then one silent corruption
+        # eight overlapping windows around the open loop's richest one:
+        # one cluster, so one pool and one ladder
+        best = max(served, key=lambda tk: len(tk.result))
+        chaos = [{"k": k, "ts": best.ts + 4 * (i - 4),
+                  "te": best.ts + 4 * (i - 4) + span} for i in range(8)]
+        healthy = TCQService(snaps[-1], device=dev, cache=False)
+
+        def run_healthy():
+            tks = [healthy.submit(r) for r in chaos]
+            healthy.run_until_idle()
+            return tks
+        htk, hwall, n = run_path(run_healthy)
+        expect("serve_chaos_healthy", n, healthy)
+        log(f"chaos windows, healthy: {len(htk)} requests in one pool, "
+            f"{hwall:.3f}s, launches {json.dumps(n)}")
+        for name, plan, every, exc in (
+                ("serve_chaos_fail", FaultPlan(fail_at=(3,)), 0,
+                 KernelFault),
+                ("serve_chaos_corrupt", FaultPlan(corrupt_at=(3,)), 1,
+                 StepDivergence)):
+            cfg = ResilienceConfig(tripwire_every=every,
+                                   rung_wrapper=rung_faults({"fused": plan}))
+            xsvc = TCQService(snaps[-1], device=dev, cache=False,
+                              use_kernel=True, resilience=cfg)
+            xtk = [xsvc.submit(r) for r in chaos]
+
+            def run():
+                try:
+                    xsvc.run_until_idle()
+                except exc as e:
+                    return e
+                return None
+            err, xwall, n = run_path(run)
+            by_path[name] = n
+            ev = xsvc.engine.resilience_events()
+            reason = "error" if plan.fail_at else "divergence"
+            check([(e["rung"], e["reason"]) for e in ev]
+                  == [("fused", reason)], f"{name}: events {ev}")
+            # on the card the fault leaves the service as an exception;
+            # the CPU's plain rungs demote and replay instead
+            check((err is not None) == on_card,
+                  f"{name}: {'no exception' if err is None else repr(err)}")
+            finished = [tk for tk in xtk if tk.status == "done"]
+            check(on_card or len(finished) == len(xtk),
+                  f"{name}: {len(finished)} of {len(xtk)} done")
+            for a, b in zip(xtk, htk):
+                check(a.status != "done" or digest(a.result)
+                      == digest(b.result),
+                      f"{name}: ticket {a.id} differs from the healthy run")
+            orc = sum(lad.oracle_calls for lad in ladders(xsvc))
+            calls = ev[0]["call"]
+            if on_card:
+                check(n["segdeg"] == 0 and n["ssm_scan"] == 0,
+                      f"{name}: launches {n}")
+                check(n["wave_peel"] == calls - (1 if plan.fail_at else 0),
+                      f"{name}: {n['wave_peel']} wave_peel launches for "
+                      f"{calls} calls")
+                check(orc == (calls if every else 0),
+                      f"{name}: {orc} oracle steps for {calls} calls")
+            log(f"{name}: {ev[0]['rung']} {reason} at call {calls} "
+                f"{'raised ' + type(err).__name__ if err else 'demoted'} "
+                f"after {xwall:.3f}s, logged once; {len(finished)} of "
+                f"{len(xtk)} tickets done before it, equal to the healthy "
+                f"run; launches {json.dumps(n)}, {orc} oracle steps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serving launches by path: {json.dumps(by_path)}")
+    return {"by_path": by_path}
+
+
 def main() -> int:
     try:
         import torch
@@ -893,15 +1289,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    def done(phase: str) -> None:
+        log(f"-- {phase} done at {time.perf_counter() - t_start:.1f}s")
+
     errs = phase_kernels(dev)
+    done("phase 2 (kernels)")
     main_run = phase_main(dev)
+    done("phase 3 (main path)")
     phase_profile(main_run)
     kernels = phase_timing(dev, main_run, errs)
-    del main_run["eng"], main_run["g"]
+    done("phases 4-5 (profile, timing)")
+    g = main_run.pop("g")
+    del main_run["eng"]
     phase_lm_smoke(dev)
     lm = phase_lm(dev)
     kernels.append(lm["entry"])
-    by_path = {**main_run["by_path"], **lm["by_path"]}
+    done("phase 6 (Jamba)")
+    torch.cuda.empty_cache()
+    served = phase_serve(dev, g)
+    done("phase 7 (serving)")
+    by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

@@ -16,7 +16,9 @@ Where the port differs from the JAX package's engine:
   step peels the persistent buffer in place (``StepResult.alive`` *is*
   the slot's buffer) and refills are index writes into it.  So a warm-
   start row handed to a QueryState is a ``.clone()``: a view would be
-  overwritten by the lane's next step.
+  overwritten by the lane's next step.  A non-donating step (the
+  degradation ladder's rungs, which must leave their input intact for a
+  replay) returns a fresh mask, and the slot adopts it as its buffer.
 * **Overlapped retire.**  ``jax.device_get`` becomes, at dispatch,
   non-blocking device-to-host copies of packed/lo/hi/ne/iters into pinned
   host buffers owned by the slot, then an event; ``retire`` waits on that
@@ -108,10 +110,12 @@ class WavePipeline:
         self._step = step_fn
 
     def run(self, uts: np.ndarray, k: int, h: int, prune: bool,
-            stats: QueryStats) -> Dict[Tuple[int, int], CoreResult]:
+            stats: QueryStats, cache=None
+            ) -> Dict[Tuple[int, int], CoreResult]:
         """Single-query entry: one QueryState, same stats object for both
-        the query's and the pool's counters."""
-        qs = QueryState(uts, k, h, prune, stats)
+        the query's and the pool's counters.  ``cache`` is an optional
+        corecache.CacheView — hits skip lanes, peels are inserted."""
+        qs = QueryState(uts, k, h, prune, stats, cache=cache)
         self.run_pool([qs], stats)
         return qs.decode_results(self.num_vertices)
 
@@ -215,6 +219,10 @@ class WavePipeline:
             slot.params.numpy()[:] = (ts_l, te_l, k_l, h_l)
             params = slot.params.to(self.device, non_blocking=True)
             res = self._step(slot.buf, *params)
+            # a donating step peeled slot.buf in place; a non-donating one
+            # (a degradation-ladder rung) returned a fresh mask, which the
+            # slot adopts so the lane's next cell warms from its peel
+            slot.buf = res.alive
             slot.inflight = res
             if cuda:
                 packed, scalars, iters = slot.host

@@ -21,7 +21,10 @@ Two execution modes share that schedule:
 fresh epoch and refreshes the device TEL inside power-of-two capacity
 classes.  ``_window_tel`` is keyed by ``(epoch, Ts, Te)`` and each entry
 pins its TEL and its wave step, so a graph update can never serve a stale
-truncation.
+truncation.  With ``cache=`` the engine keeps a TTI-keyed core cache
+(``core/corecache.py``) that ``update_graph`` advances across the
+appended batch; with ``resilience=`` every window entry pins a
+degradation ladder (``core/wave.py``) in place of the single step.
 
 The engine runs on the card unless told otherwise: ``TCQEngine(graph)``
 resolves to CUDA and raises when there is none.  ``device="cpu"`` runs the
@@ -38,22 +41,19 @@ from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.core.corecache import CacheView, CoreCache
 from repro_torch.core.engine import WavePipeline
 from repro_torch.core.graph import DeviceTEL, TemporalGraph, pow2_capacity
 from repro_torch.core.intervals import IntervalSet
 from repro_torch.core.results import CoreResult, QueryStats, TCQResult
 from repro_torch.core.scheduler import QueryState, autotune_wave
 from repro_torch.core.tcd import tcd
-from repro_torch.core.wave import make_wave_step_fn
+from repro_torch.core.wave import ResilienceConfig, make_wave_step_fn
 from repro_torch.kernels.segdeg.ops import make_banded_segsum
 
 _I32_MIN = np.iinfo(np.int32).min
 _WINDOW_CACHE_MAX = 64
 _EPOCH_AUX_MAX = 8          # snapshot pair-table LRU (epochs still in flight)
-
-# constructor options of the JAX engine not ported yet -> ROADMAP item
-_NOT_PORTED = {"mesh": "A11", "combine": "A11", "cache": "A7",
-               "resilience": "A8"}
 
 
 def resolve_device(device=None, who: str = "TCQEngine") -> torch.device:
@@ -99,6 +99,14 @@ class TCQEngine:
     composite lowering (torch gathers + the segdeg kernel), None (default)
     the fused kernel on CUDA.  On the CPU both run plain PyTorch.
 
+    ``cache`` is True (a default :class:`CoreCache`), an instance, or
+    None/False (off, the default for a bare engine).  ``resilience`` is
+    True (a default :class:`ResilienceConfig`), a config, or None/False:
+    with it every window's step is a ladder whose events
+    :meth:`resilience_events` reports: demotions on the CPU; on the card
+    a kernel failure or a tripwire divergence, logged and raised (without
+    it a kernel failure raises too).
+
     ``num_vertices`` is the *device* vertex width (a capacity >= the live
     vertex count once the graph has grown); padded vertices have no
     incident edges, peel out on the first fixpoint iteration for any
@@ -108,15 +116,20 @@ class TCQEngine:
     def __init__(self, graph: TemporalGraph, *, device=None,
                  use_kernel: Optional[bool] = None, mesh=None,
                  combine=None, cache=None, resilience=None):
-        for name, val in (("mesh", mesh), ("combine", combine),
-                          ("cache", cache), ("resilience", resilience)):
+        for name, val in (("mesh", mesh), ("combine", combine)):
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f"TCQEngine({name}=...) is not ported to the PyTorch "
-                    f"engine yet (ROADMAP {_NOT_PORTED[name]})")
+                    "engine yet (ROADMAP A11, the sharded pipeline)")
         self.device = resolve_device(device)
         self._use_kernel = (self.device.type == "cuda"
                             if use_kernel is None else bool(use_kernel))
+        if cache is True:
+            cache = CoreCache()
+        self.core_cache: Optional[CoreCache] = cache or None
+        if resilience is True:
+            resilience = ResilienceConfig()
+        self._resilience: Optional[ResilienceConfig] = resilience or None
         self.epoch = 0
         # (epoch, Ts, Te) -> WindowTEL, LRU
         self._win_cache: "OrderedDict[Tuple[int, int, int], WindowTEL]" = \
@@ -163,9 +176,23 @@ class TCQEngine:
         """Install a new graph snapshot (streaming append) under a fresh
         epoch; returns the new epoch.  In-flight queries pinned to older
         epochs are untouched — their window TELs stay valid and
-        epoch-keyed."""
+        epoch-keyed.
+
+        When the new snapshot is the direct child of the current one
+        (``graph.parent_uid`` matches and the appended batch's time span
+        is known), the core cache is *advanced*, not flushed: entries
+        whose window (cells) or TTI (cores) avoids the batch's span are
+        re-keyed to the new epoch, the rest invalidated
+        (``CoreCache.advance_epoch``).  An unrelated snapshot starts the
+        new epoch cold."""
+        old_epoch, old_uid = self.epoch, self.graph.uid
         self.epoch += 1
         self._install(graph, initial=False)
+        span = graph.appended_span
+        if self.core_cache is not None and span is not None and \
+                graph.parent_uid == old_uid:
+            self.core_cache.advance_epoch(old_epoch, self.epoch,
+                                          int(span[0]), int(span[1]))
         return self.epoch
 
     def _remember_aux(self, epoch: int, aux: _EpochAux) -> None:
@@ -207,7 +234,39 @@ class TCQEngine:
         dead_a = [e for e in self._epoch_aux if e not in live]
         for e in dead_a:
             del self._epoch_aux[e]
+        if self.core_cache is not None:
+            self.core_cache.retire_epochs(live)
         return len(dead_w) + len(dead_a)
+
+    def rebase_epoch(self, epoch: int) -> None:
+        """Re-key the engine's current snapshot under an externally
+        dictated epoch number (crash recovery: a restored service resumes
+        its pre-crash epoch numbering, so re-admitted tickets' pinned
+        epochs stay meaningful and later pushes continue the sequence)."""
+        epoch = int(epoch)
+        if epoch == self.epoch:
+            return
+        aux = self._epoch_aux.pop(self.epoch)
+        moved = [(k, v) for k, v in self._win_cache.items()
+                 if k[0] == self.epoch]
+        for k, _ in moved:
+            del self._win_cache[k]
+        if self.core_cache is not None:
+            self.core_cache.rebase_epoch(self.epoch, epoch)
+        self.epoch = epoch
+        self._epoch_aux[epoch] = aux
+        for (_, ts, te), v in moved:
+            self._win_cache[(epoch, ts, te)] = v
+
+    def resilience_events(self) -> List[Dict]:
+        """Degradation events (demotions on the CPU, failures raised on
+        the card) across every live window ladder, most recent windows
+        last.  Empty when the engine was built without ``resilience``."""
+        out: List[Dict] = []
+        for (ep, ts, te), wt in self._win_cache.items():
+            for ev in getattr(wt.step_fn, "events", ()):
+                out.append({"epoch": ep, "window": (ts, te), **ev})
+        return out
 
     # -------------------------------------------------------- window slicing
     def _window_tel(self, Ts: int, Te: int, *,
@@ -220,7 +279,9 @@ class TCQEngine:
         degree path).  The cache is LRU and keyed by ``(epoch, Ts, Te)``;
         queries pinned to an older epoch pass ``graph``/``epoch``
         explicitly.  Each entry pins the wave step built for its TEL (the
-        fused kernel's band tables follow the truncation's segment ids).
+        fused kernel's band tables follow the truncation's segment ids),
+        or with ``resilience`` its degradation ladder, whose rungs never
+        donate the lane buffer.
         """
         g = self.graph if graph is None else graph
         ep = self.epoch if epoch is None else int(epoch)
@@ -256,7 +317,9 @@ class TCQEngine:
         seg_vert = make_banded_segsum(v_cap, tel.hp_src)
         step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
                                  seg_vert=seg_vert,
-                                 use_kernel=self._use_kernel, donate=True)
+                                 use_kernel=self._use_kernel,
+                                 donate=self._resilience is None,
+                                 resilience=self._resilience)
         out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
         if len(self._win_cache) >= _WINDOW_CACHE_MAX:
             self._win_cache.popitem(last=False)     # evict least-recent
@@ -281,8 +344,9 @@ class TCQEngine:
 
     # --------------------------------------------------------- observability
     def stats(self) -> Dict:
-        """The window-TEL LRU's hit/miss/eviction counters."""
-        return {
+        """The window-TEL LRU's hit/miss/eviction counters and, when
+        result caching is on, the core cache's (``CoreCache.stats``)."""
+        out = {
             "epoch": self.epoch,
             "device": str(self.device),
             "window_tel": {
@@ -292,6 +356,16 @@ class TCQEngine:
                 "size": len(self._win_cache),
             },
         }
+        if self.core_cache is not None:
+            out["core_cache"] = self.core_cache.stats()
+        return out
+
+    def _cache_view(self, k: int, h: int, epoch: Optional[int] = None):
+        """CacheView bound to (epoch, k, h), or None when caching is off."""
+        if self.core_cache is None:
+            return None
+        return CacheView(self.core_cache,
+                         self.epoch if epoch is None else int(epoch), k, h)
 
     # ------------------------------------------------------------------ query
     def query(self, k: int, Ts: int, Te: int, *, h: int = 1,
@@ -323,7 +397,8 @@ class TCQEngine:
             pipe, wt, wave = self.make_pool(int(uts[0]), int(uts[-1]),
                                             wave=wave, depth=depth)
             stats.window_edges = wt.window_edges
-            cores = pipe.run(uts, k, h, prune, stats)
+            cores = pipe.run(uts, k, h, prune, stats,
+                             cache=self._cache_view(k, h))
         else:
             wt = self._window_tel(int(uts[0]), int(uts[-1]))
             stats.window_edges = wt.window_edges
@@ -366,7 +441,8 @@ class TCQEngine:
                 continue
             states.append((qi, QueryState(
                 uts, int(r["k"]), int(r.get("h", 1)), prune, stats,
-                qid=qi)))
+                qid=qi,
+                cache=self._cache_view(int(r["k"]), int(r.get("h", 1))))))
         if states:
             lo = min(int(s.uts[0]) for _, s in states)
             hi = max(int(s.uts[-1]) for _, s in states)

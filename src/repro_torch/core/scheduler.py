@@ -105,13 +105,18 @@ class QueryState:
 
     def __init__(self, uts: np.ndarray, k: int, h: int, prune: bool,
                  stats: QueryStats, qid: int = 0,
-                 deadline: float = float("inf"), priority: int = 0):
+                 deadline: float = float("inf"), priority: int = 0,
+                 cache=None):
         self.qid = qid
         self.uts = np.asarray(uts)
         self.n = int(self.uts.size)
         self.k, self.h = int(k), int(h)
         self.prune = bool(prune)
         self.stats = stats
+        # optional corecache.CacheView bound to this query's (epoch, k, h):
+        # claim() resolves cached cells without spending a lane, retire()
+        # inserts every freshly peeled cell (insert-on-peel)
+        self.cache = cache
         # EDF admission key: the lane pool claims cells from the state
         # with the smallest (deadline, priority) first (scheduler ties
         # fall back to round-robin).  inf deadline = best-effort.
@@ -128,7 +133,8 @@ class QueryState:
         self.empty = EmptyStaircase()
         # (row, col, device [V] row) of the best completed row-initial core
         self.best_init: Optional[Tuple[int, int, object]] = None
-        # cursor objects (not bare indices): a row's position survives
+        # cursor objects (not bare indices): cache probing can part-consume
+        # a row without claiming a lane, so cursor position must survive
         # being requeued
         self.pending = deque(RowCursor(i, self.n) for i in range(self.n))
         self.live_rows = 0          # rows currently holding a lane
@@ -154,13 +160,49 @@ class QueryState:
         self.pending.clear()
 
     def claim(self) -> Optional[RowCursor]:
-        """Next ready row cursor, or None when nothing is pending."""
+        """Next ready row cursor, or None when nothing is pending.
+
+        With a cache attached, cells that resolve from it are consumed
+        here — fed through the same pruning/dedup feedback as a peeled
+        cell — and only a row whose next cell *misses* ever takes a lane.
+        """
         while self.pending:
             row = self.pending.popleft()
-            if self._advance(row):
+            if not self._advance(row):
+                continue
+            if self._drain_cached(row):
                 self.live_rows += 1
                 return row
         return None
+
+    def _drain_cached(self, row: RowCursor) -> bool:
+        """Resolve the row's cells from the cache until a miss (True — the
+        row still needs a lane) or exhaustion (False)."""
+        if self.cache is None:
+            return True
+        while True:
+            hit = self.cache.lookup(*self.window(row))
+            if hit is None:
+                return True
+            self.stats.cells_cached += 1
+            if not self._feedback(row, hit.tti_lo, hit.tti_hi, hit.n_edges,
+                                  hit.packed, None):
+                return False
+
+    def resolve_cached(self) -> int:
+        """Admission-time sweep: resolve every pending row as far as the
+        cache reaches; rows that miss keep their cursor position for the
+        lane pool.  Returns the number of cells resolved (``done`` turns
+        True when the whole query was served from cache)."""
+        resolved0 = self.stats.cells_cached
+        if self.cache is not None and not self.cancelled:
+            keep = deque()
+            while self.pending:
+                row = self.pending.popleft()
+                if self._advance(row) and self._drain_cached(row):
+                    keep.append(row)
+            self.pending = keep
+        return self.stats.cells_cached - resolved0
 
     def _advance(self, row: RowCursor) -> bool:
         """Move the cursor past pruned/empty cells; False once exhausted."""
@@ -196,18 +238,34 @@ class QueryState:
         row, so retiring never copies lanes it does not need.  The row it
         returns must be a copy the lane pool will not overwrite: the port
         refills lane buffers in place.
+
+        With a cache attached, the peeled cell is inserted before feedback
+        (insert-on-peel), and the row's subsequent cells are drained from
+        the cache so the lane is only kept for a genuine miss.
         """
+        if self.cache is not None:
+            ts, te = self.window(row)
+            if n_edges == 0:
+                self.cache.insert_empty(ts, te)
+            else:
+                self.cache.insert(ts, te, tti_lo, tti_hi, n_edges,
+                                  packed_row)
         keep = self._feedback(row, tti_lo, tti_hi, n_edges, packed_row,
                               alive_row)
+        if keep:
+            keep = self._drain_cached(row)
         if not keep:
             self.live_rows -= 1
         return keep
 
     def _feedback(self, row: RowCursor, tti_lo: int, tti_hi: int,
-                  n_edges: int, packed_row: np.ndarray,
-                  alive_row: Callable[[], object]) -> bool:
-        """Apply one peeled cell to the query's pruning/dedup/staircase
-        state and advance the cursor; True while the row has cells left."""
+                  n_edges: int, packed_row: Optional[np.ndarray],
+                  alive_row: Optional[Callable[[], object]]) -> bool:
+        """Apply one resolved cell (peeled or cache-served) to the query's
+        pruning/dedup/staircase state and advance the cursor; True while
+        the row has cells left.  ``alive_row`` is None for cache hits —
+        there is no device row to promote to a warm start (Theorem 1 makes
+        that a pure perf concession, never a correctness one)."""
         i, j = row.i, row.j
         stats = self.stats
         if n_edges == 0:
@@ -220,7 +278,7 @@ class QueryState:
             stats.duplicates += 1
         else:
             self.collected[key] = (packed_row, n_edges)
-        if row.first and \
+        if alive_row is not None and row.first and \
                 (self.best_init is None or j >= self.best_init[1]):
             self.best_init = (i, j, alive_row())
         row.first = False
@@ -246,10 +304,11 @@ class QueryState:
                        ) -> Dict[Tuple[int, int], CoreResult]:
         """One deferred bulk unpack of every collected packed core row.
 
-        Rows are grouped by packed width before stacking, so rows of
-        different vertex capacities decode side by side.  Vertex
-        capacities only ever grow and padded vertices are never core
-        members, so a narrower row decodes to the same vertex set.
+        Rows are grouped by packed width before stacking: cache-served
+        rows may predate a capacity growth and carry fewer uint32 words
+        than freshly peeled ones.  Vertex capacities only ever grow and
+        padded vertices are never core members, so a narrower row decodes
+        to the same vertex set.
         """
         results: Dict[Tuple[int, int], CoreResult] = {}
         by_width: Dict[int, list] = defaultdict(list)

@@ -15,8 +15,10 @@ pack for W lanes) — has two lowerings behind one dispatcher,
     CUDA kernel on the card and run its plain version on the CPU.
 
 On CPU tensors both lowerings run plain PyTorch; on CUDA tensors each runs
-its kernel or raises.  All of them are bit-identical to the JAX package's
-lowerings on every ``StepResult`` field (tests/test_torch_wave.py).
+its kernel or raises, with or without a :class:`ResilienceConfig`, which
+on the card only logs the failure (:class:`DegradationLadder`).  All of
+them are bit-identical to the JAX package's lowerings on every
+``StepResult`` field (tests/test_torch_wave.py).
 
 Packed mask words are int32 tensors holding the uint32 bit patterns
 (torch has little uint32 arithmetic); they are viewed as ``<u4`` at the
@@ -25,8 +27,9 @@ host boundary.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -219,6 +222,8 @@ def make_oracle_step_fn(tel: DeviceTEL, num_vertices: int):
     """Serial numpy reference step over host copies of the (possibly
     capacity- or bucket-padded) TEL: no torch op touches the peel.
 
+    The returned step counts its own calls in ``step.calls``.
+
     Bit-identical to the composite on every ``StepResult`` field including
     the shared iteration count: the loop runs while any lane changed, the
     segment reductions drop ``pair_id == P`` and ``hp_src == V`` like the
@@ -242,6 +247,7 @@ def make_oracle_step_fn(tel: DeviceTEL, num_vertices: int):
         return np.broadcast_to(np.asarray(x), (w,)).astype(np.int64)
 
     def step(alive, ts, te, k, h):
+        step.calls += 1
         cur = np.array(alive.cpu().numpy() if torch.is_tensor(alive)
                        else alive, dtype=bool)
         w = cur.shape[0]
@@ -277,12 +283,177 @@ def make_oracle_step_fn(tel: DeviceTEL, num_vertices: int):
                             for a in out))
 
     step.backend = "oracle"
+    step.calls = 0
     return step
+
+
+# --------------------------------------------------- degradation ladder
+class StepDivergence(RuntimeError):
+    """The tripwire's oracle disagreed with a step on the card."""
+
+
+def _demotes(tel: DeviceTEL) -> bool:
+    """Whether a ladder over ``tel`` may replay a failed call on another
+    rung: on CPU tensors only (on the card every failure raises)."""
+    return not tel.t.is_cuda
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceConfig:
+    """Knobs for the graceful-degradation ladder (pass as
+    ``make_wave_step_fn(resilience=...)`` / ``TCQEngine(resilience=...)``).
+
+    tripwire_every:
+        Sample every Nth step call: recompute one random lane on the
+        numpy oracle and compare bit-for-bit; a divergence quarantines
+        the current rung and replays the call one rung down (on the card:
+        raises :class:`StepDivergence`).  0 disables the tripwire.
+    seed:
+        Seeds the tripwire's lane sampling (determinism for the chaos
+        harness).
+    rung_wrapper:
+        ``wrapper(name, step_fn) -> step_fn`` applied to each rung at
+        build time — the fault-injection seam (``core/faultinject.py``).
+
+    The JAX package's ``interpret`` and ``vmem_budget_bytes`` have no
+    counterpart: the kernel has no interpret mode, and a V above its
+    shared-memory limit (``wave_peel.ops.max_vertices()``) raises.
+    """
+
+    tripwire_every: int = 64
+    seed: int = 0
+    rung_wrapper: Optional[Callable] = None
+
+
+class DegradationLadder:
+    """Graceful degradation across the step lowerings: ``"fused"`` ->
+    ``"composite"`` -> ``"oracle"``.
+
+    The rungs are the JAX package's ``"pallas"`` -> ``"xla"`` ->
+    ``"oracle"`` on this port's lowerings: ``"fused"`` is the wave_peel
+    kernel's plain version, ``"composite"`` plain torch gathers and
+    segment sums, ``"oracle"`` the serial numpy step
+    (:func:`make_oracle_step_fn`).
+
+    Built like a step_fn, called like a step_fn.  Every rung is
+    *non-donating*, so when a rung fails — a raised fault or a tripwire
+    divergence — the same inputs replay on the next rung bit-identically:
+    demotion is invisible in the results, it only shows up in ``events``
+    and latency.  A demoted rung is quarantined for this ladder's
+    lifetime (ladders are pinned per ``(epoch, Ts, Te)`` window entry, so
+    a quarantine lasts the epoch).
+
+    Demotion is for CPU tensors only.  On the card the ladder holds one
+    rung, the step :func:`make_wave_step_fn` would build without it (the
+    wave_peel kernel, or the composite over the segdeg kernel): a build
+    failure raises, and a failed call or a tripwire divergence is logged
+    in ``events`` and raised, never replayed elsewhere.
+    """
+
+    def __init__(self, tel: DeviceTEL, num_vertices: int, *,
+                 seg_pair=None, seg_vert=None, use_kernel: bool = False,
+                 config: Optional[ResilienceConfig] = None):
+        self.config = config or ResilienceConfig()
+        self.events = []            # [{rung, reason, detail, call}]
+        self.calls = 0
+        self.rung = 0
+        self.demotes = _demotes(tel)
+        self._rng = np.random.default_rng(self.config.seed)
+        if seg_pair is None:
+            seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
+        if seg_vert is None:
+            seg_vert = make_banded_segsum(num_vertices, tel.hp_src)
+        rungs = []
+        if use_kernel:
+            from repro_torch.kernels.wave_peel.ops import \
+                make_fused_wave_step
+
+            rungs.append(("fused", make_fused_wave_step(
+                tel, num_vertices, donate=False)))
+        if self.demotes or not use_kernel:
+            rungs.append(("composite", make_composite_step(
+                tel, num_vertices, seg_pair=seg_pair, seg_vert=seg_vert,
+                donate=False)))
+        self._truth = make_oracle_step_fn(tel, num_vertices)  # unwrapped
+        if self.demotes:
+            rungs.append(("oracle", self._truth))
+        wrap = self.config.rung_wrapper
+        if wrap is not None:
+            rungs = [(name, wrap(name, fn) or fn) for name, fn in rungs]
+        self.rungs = rungs
+
+    def _log(self, rung: str, reason: str, detail: str = "") -> None:
+        self.events.append({"rung": rung, "reason": reason,
+                            "detail": detail, "call": self.calls})
+
+    @property
+    def backend(self) -> str:
+        return self.rungs[self.rung][0]
+
+    @property
+    def oracle_calls(self) -> int:
+        """Oracle steps run, as a rung or for the tripwire."""
+        return self._truth.calls
+
+    @staticmethod
+    def _lane_slice(x, lane: int, w: int) -> np.ndarray:
+        if torch.is_tensor(x):
+            x = x.cpu().numpy()
+        return np.broadcast_to(np.asarray(x), (w,))[lane:lane + 1]
+
+    def _lane_check(self, res: StepResult, alive, ts, te, k, h) -> bool:
+        """Sampled cross-check: one random lane recomputed on the oracle
+        and compared exactly on alive, packed, tti_lo/tti_hi and n_edges
+        (lanes are independent, so a single-lane oracle run must match
+        that lane of the wave — except the shared iteration count, a max
+        over lanes)."""
+        w = int(res.alive.shape[0])
+        lane = int(self._rng.integers(w))
+        truth = self._truth(
+            alive[lane:lane + 1],
+            self._lane_slice(ts, lane, w), self._lane_slice(te, lane, w),
+            self._lane_slice(k, lane, w), self._lane_slice(h, lane, w))
+        got = (res.alive[lane], res.packed[lane], res.tti_lo[lane],
+               res.tti_hi[lane], res.n_edges[lane])
+        want = (truth.alive[0], truth.packed[0], truth.tti_lo[0],
+                truth.tti_hi[0], truth.n_edges[0])
+        return all(np.array_equal(g.cpu().numpy(), x.cpu().numpy())
+                   for g, x in zip(got, want))
+
+    def __call__(self, alive, ts, te, k, h) -> StepResult:
+        self.calls += 1
+        every = self.config.tripwire_every
+        check = bool(every) and self.calls % every == 0
+        while True:
+            name, fn = self.rungs[self.rung]
+            last = self.rung == len(self.rungs) - 1
+            try:
+                res = fn(alive, ts, te, k, h)
+            except Exception as e:
+                if not self.demotes:            # the card: log and raise
+                    self._log(name, "error", repr(e))
+                    raise
+                if last:
+                    raise
+                self._log(name, "error", repr(e))
+                self.rung += 1
+                continue            # replay the same cells one rung down
+            if check and name != "oracle" and not self._lane_check(
+                    res, alive, ts, te, k, h):
+                self._log(name, "divergence", f"call {self.calls}")
+                if not self.demotes:
+                    raise StepDivergence(
+                        f"{name} step diverged from the oracle at call "
+                        f"{self.calls}")
+                self.rung += 1
+                continue            # quarantine + bit-identical replay
+            return res
 
 
 def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
                       seg_pair=None, seg_vert=None,
-                      use_kernel=None, donate: bool = False):
+                      use_kernel=None, donate: bool = False,
+                      resilience: Optional[ResilienceConfig] = None):
     """Build the device step for one TEL: ``step(alive, ts, te, k, h) ->
     StepResult`` with a ``.backend`` attribute.
 
@@ -295,9 +466,23 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
     ``donate=True`` peels the caller's ``alive`` buffer in place (the
     pipeline's persistent lane slab); leave it False when the caller
     reuses its buffer.
+
+    With ``resilience`` set, the returned step is a
+    :class:`DegradationLadder`: on CPU tensors it demotes across the
+    lowerings (fused -> composite -> numpy oracle) on raised errors or a
+    sampled divergence tripwire, logs each demotion, and replays the
+    failed call on the next rung bit-identically; on the card it runs the
+    same single step as without it, adds the tripwire, and logs then
+    raises every failure.  Ladder rungs never donate (``donate`` is
+    ignored): a replay and the tripwire need their inputs intact.
     """
     if use_kernel is None:
         use_kernel = tel.t.is_cuda
+    if resilience is not None:
+        return DegradationLadder(tel, num_vertices, seg_pair=seg_pair,
+                                 seg_vert=seg_vert,
+                                 use_kernel=bool(use_kernel),
+                                 config=resilience)
     if use_kernel:
         from repro_torch.kernels.wave_peel.ops import make_fused_wave_step
 

@@ -364,3 +364,132 @@ def test_serve_step_on_card_matches_cpu(cuda):
             scale = min(1.0, float(cc[sub][name].abs().max()))
             torch.testing.assert_close(cg[sub][name], cc[sub][name],
                                        rtol=1e-4, atol=1e-4 * scale)
+
+
+# ------------------------------------------------------ serving on the card
+def _serve_graph():
+    return powerlaw_temporal(300, 4_000, 400, burst_periods=4, seed=11)
+
+
+def _serve_reqs(g, n=10):
+    rng = np.random.default_rng(3)
+    uts = g.unique_ts
+    out = []
+    for _ in range(n):
+        a = int(rng.integers(0, uts.size - 40))
+        out.append({"k": int(rng.integers(2, 5)), "ts": int(uts[a]),
+                    "te": int(uts[a + 39])})
+    return out
+
+
+def _digest(res):
+    return sorted((key, tuple(c.vertices.tolist()), int(c.n_edges))
+                  for key, c in res.by_tti().items())
+
+
+def _service_run(g, reqs, batch=None, **kw):
+    from repro_torch.core import TCQService
+
+    svc = TCQService(g, **kw)
+    tks = [svc.submit(r) for r in reqs[: len(reqs) // 2]]
+    if batch is not None:
+        svc.push_edges(*batch)
+    tks += [svc.submit(r) for r in reqs[len(reqs) // 2:]]
+    svc.run_until_idle()
+    return svc, tks
+
+
+def test_service_on_card_equals_query_batch(cuda):
+    from repro_torch.core.wave import DegradationLadder
+
+    g = _serve_graph()
+    reqs = _serve_reqs(g)
+    rng = np.random.default_rng(4)
+    batch = (rng.integers(0, 300, 50), rng.integers(0, 300, 50),
+             rng.integers(300, 400, 50))
+    peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    svc, tks = _service_run(g, reqs, batch)
+    assert svc.engine.device.type == "cuda"       # the default
+    assert peel.wave_peel.launches > 0
+    assert segdeg.banded_segsum.launches == 0
+    assert not any(isinstance(wt.step_fn, DegradationLadder)
+                   for wt in svc.engine._win_cache.values())
+    assert svc.engine.resilience_events() == []
+    g1 = g.add_edges(*batch)
+    for snap, part in ((g, tks[:5]), (g1, tks[5:])):
+        want = TCQEngine(snap).query_batch(
+            [{"k": t.k, "ts": t.ts, "te": t.te} for t in part])
+        for tk, w in zip(part, want):
+            assert tk.status == "done" and _digest(tk.result) == _digest(w)
+    # the same windows again: the cache serves them without a launch
+    peel.wave_peel.launches = 0
+    again = [svc.submit(r) for r in reqs[5:]]
+    svc.run_until_idle()
+    for tk, old in zip(again, tks[5:]):
+        assert _digest(tk.result) == _digest(old.result)
+    assert all(tk.result.stats.cells_evaluated == 0 for tk in again)
+    assert peel.wave_peel.launches == 0
+
+
+def test_ladder_fault_on_card_raises_and_is_logged(cuda):
+    """On the card the ladder replays nothing elsewhere: an injected
+    fused failure or a corruption the tripwire sees leaves
+    ``run_until_idle`` as an exception, logged once, with no segdeg
+    launch; the calls before it equal the healthy run's."""
+    from repro_torch.core import (ResilienceConfig, StepDivergence,
+                                  TCQService)
+    from repro_torch.core.faultinject import (FaultPlan, KernelFault,
+                                              rung_faults)
+
+    g = _serve_graph()
+    reqs = _serve_reqs(g, 6)
+    for plan, every, reason, exc in (
+            (FaultPlan(fail_at=(2,)), 0, "error", KernelFault),
+            (FaultPlan(corrupt_at=(2,)), 1, "divergence", StepDivergence)):
+        cfg = ResilienceConfig(tripwire_every=every,
+                               rung_wrapper=rung_faults({"fused": plan}))
+        svc = TCQService(g, cache=False, resilience=cfg)
+        for r in reqs:
+            svc.submit(r)
+        segdeg.banded_segsum.launches = 0
+        with pytest.raises(exc):
+            svc.run_until_idle()
+        assert [(e["rung"], e["reason"]) for e in
+                svc.engine.resilience_events()] == [("fused", reason)]
+        assert segdeg.banded_segsum.launches == 0
+    # and with no fault the ladder (tripwire on every call) is invisible
+    _, want = _service_run(g, reqs, cache=False)
+    svc, got = _service_run(g, reqs, cache=False,
+                            resilience=ResilienceConfig(tripwire_every=1))
+    assert svc.engine.resilience_events() == []
+    for a, b in zip(got, want):
+        assert _digest(a.result) == _digest(b.result)
+
+
+def test_ladder_over_smem_limit_raises_on_card(cuda, monkeypatch):
+    from repro_torch.core import ResilienceConfig
+
+    g = _serve_graph()
+    monkeypatch.setattr(peel, "max_vertices", lambda: 8)
+    with pytest.raises(ValueError, match="V <= 8"):
+        make_wave_step_fn(g.device_tel(device=cuda), g.num_vertices,
+                          resilience=ResilienceConfig())
+
+
+def test_recover_on_card(cuda, tmp_path):
+    from repro_torch.core import TCQService
+
+    g = _serve_graph()
+    reqs = _serve_reqs(g, 6)
+    d = str(tmp_path / "wal")
+    svc = TCQService(g, wal_dir=d)
+    tks = [svc.submit(r) for r in reqs]
+    svc.push_edges([0, 1, 2], [3, 4, 5], [390, 391, 392])
+    svc.run_until_idle()
+    svc.wal.close()
+    rec = TCQService.recover(d)
+    assert rec.engine.device.type == "cuda" and rec.epoch == 1
+    redo = {t.id: t for t in rec.run_until_idle()}
+    for tk in tks:
+        assert _digest(redo[tk.id].result) == _digest(tk.result)
+    rec.wal.close()

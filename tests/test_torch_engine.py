@@ -181,8 +181,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("mesh", object(), "A11"), ("combine", "psum", "A11"),
-    ("cache", True, "A7"), ("resilience", True, "A8")])
+    ("mesh", object(), "A11"), ("combine", "psum", "A11")])
 def test_options_not_ported_raise(option, value, item):
     g = TemporalGraph.from_state(planted_cores(seed=1).state_dict())
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
