@@ -55,6 +55,17 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    out of the service and be logged once, with no segdeg launch.  Every
    ticket equals a cache-free engine's ``query_batch`` on its pinned
    snapshot; the healthy paths hold no ladder and launch no segdeg;
+8. puts the paper's comparison (Fig. 7) on the card, on the phase-3 graph
+   and phase 3's first window (64 days at its k): builds the PHC-Index on
+   the card against the full TEL (``PHCIndex``; build time, TCD calls,
+   peel iterations, host reads, index bytes beside the TEL's), answers the
+   window with ``iphc_query`` (Algorithm 1 on the host), with
+   ``TCQEngine.query`` in serial and in wave mode, all three equal; holds
+   the card's ``core_time`` bit for bit to a CPU build of the same window;
+   and runs the window through ``TCQEngine(g, degrees)`` (the stock degree
+   passed as a custom ``degree_fn``) in wave mode: equal to the default
+   engine, serial (no wave_peel launch), its core cache off.  The build,
+   the iPHC query and the ``degree_fn`` query launch no kernel;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -1251,6 +1262,92 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
     return {"by_path": by_path}
 
 
+# ------------------------------------------- phase 8: the paper's baseline
+def phase_baseline(dev, g, req: dict) -> dict:
+    """PHC-Index + iPHC (the paper's baseline) against OTCD on one window;
+    see item 8 of the module docstring."""
+    import numpy as np
+    from repro_torch.core import PHCIndex, TCQEngine, iphc_query
+    from repro_torch.core.tcd import degrees
+
+    k, ts, te = req["k"], req["ts"], req["te"]
+    on_card = dev.type == "cuda"
+    idx, build_s, n_build = run_path(
+        lambda: PHCIndex(g, k, ts, te, device=dev))
+    n_uts = int(idx.uts.size)
+    rows = int((idx.core_time < np.iinfo(np.int64).max).any(1).sum())
+    log(f"PHC-Index (k={k}, [{ts}, {te}], {n_uts} days) built on {dev} in "
+        f"{idx.build_time_s:.3f}s ({build_s:.3f}s wall): {idx.tcd_calls} "
+        f"TCD calls on the {g.num_edges}-edge TEL, {idx.peel_iters} peel "
+        f"iterations, {idx.host_syncs} host reads; {rows} of {n_uts} rows "
+        f"hold a core; index {idx.nbytes()} bytes against the TEL's "
+        f"{g.memory_bytes()}")
+    iphc, iphc_s, n_iphc = run_path(lambda: iphc_query(g, idx, k, ts, te))
+    eng = TCQEngine(g, device=dev)
+    serial, serial_cold_s, _ = run_path(lambda: eng.query(k, ts, te))
+    wave, wave_cold_s, n_wave = run_path(
+        lambda: eng.query(k, ts, te, mode="wave"))
+    _, serial_s, _ = run_path(lambda: eng.query(k, ts, te))
+    _, wave_s, _ = run_path(lambda: eng.query(k, ts, te, mode="wave"))
+    same_cores(iphc, serial, "iPHC vs OTCD serial")
+    same_cores(wave, serial, "OTCD wave vs serial")
+    check(len(iphc) == req["cores"],
+          f"iPHC found {len(iphc)} cores, phase 3 {req['cores']}")
+    st = iphc.stats
+    log(f"iPHC online {iphc_s:.3f}s ({st.cells_evaluated} cells, "
+        f"{st.duplicates} duplicates); OTCD serial {serial_s:.4f}s warm "
+        f"({serial_cold_s:.4f}s cold), wave {wave_s:.4f}s warm "
+        f"({wave_cold_s:.4f}s cold); {len(iphc)} cores, equal across the "
+        f"three; iPHC / OTCD: {iphc_s / serial_s:.1f}x serial, "
+        f"{iphc_s / wave_s:.1f}x wave (warm); with the build "
+        f"{(build_s + iphc_s) / wave_s:.1f}x wave")
+
+    t0 = time.perf_counter()
+    ref = PHCIndex(g, k, ts, te, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(idx.core_time, ref.core_time)
+          and np.array_equal(idx.uts, ref.uts), "core_time differs from "
+          "the CPU build")
+    check((idx.tcd_calls, idx.peel_iters) == (ref.tcd_calls, ref.peel_iters),
+          f"build counters {idx.tcd_calls}/{idx.peel_iters} vs the CPU's "
+          f"{ref.tcd_calls}/{ref.peel_iters}")
+    log(f"PHC-Index on {dev}: core_time [{n_uts}, {g.num_vertices}] "
+        f"bit-identical to the CPU build ({cpu_s:.3f}s)")
+
+    stock = TCQEngine(g, degrees, device=dev, cache=True)
+    check(stock.core_cache is None, "a degree_fn engine kept its cache")
+    custom, custom_s, n_custom = run_path(
+        lambda: stock.query(k, ts, te, mode="wave"))
+    same_cores(custom, wave, "degree_fn=degrees vs the default engine")
+    check(custom.stats.window_edges == g.num_edges
+          and custom.stats.device_steps == custom.stats.cells_evaluated,
+          "the degree_fn query did not run serial on the full TEL")
+    log(f"degree_fn=degrees, mode='wave': {len(custom)} cores equal to the "
+        f"default engine's, serial on the full TEL "
+        f"({custom.stats.cells_evaluated} cells, {custom_s:.4f}s), "
+        "core cache off")
+
+    by_path = {"phc_build": n_build, "iphc_query": n_iphc,
+               "degree_fn_query": n_custom}
+    for path, n in by_path.items():
+        check(not any(n.values()), f"{path}: launches {n}")
+    steps = wave.stats.device_steps
+    check(not on_card or n_wave["wave_peel"] >= steps,
+          f"OTCD wave: {n_wave['wave_peel']} wave_peel launches for {steps} "
+          "steps")
+    log(f"baseline launches by path: {json.dumps(by_path)}")
+    log("baseline: " + json.dumps({
+        "k": k, "window": [ts, te], "days": n_uts, "cores": len(iphc),
+        "build_s": idx.build_time_s, "tcd_calls": idx.tcd_calls,
+        "peel_iters": idx.peel_iters, "host_syncs": idx.host_syncs,
+        "index_bytes": idx.nbytes(), "tel_bytes": g.memory_bytes(),
+        "iphc_s": iphc_s, "otcd_serial_s": serial_s,
+        "otcd_wave_s": wave_s, "otcd_serial_cold_s": serial_cold_s,
+        "otcd_wave_cold_s": wave_cold_s, "cpu_build_s": cpu_s,
+        "degree_fn_s": custom_s}))
+    return {"by_path": by_path}
+
+
 def main() -> int:
     try:
         import torch
@@ -1308,7 +1405,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = phase_serve(dev, g)
     done("phase 7 (serving)")
-    by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"]}
+    base = phase_baseline(dev, g, main_run["reqs"][0])
+    done("phase 8 (baseline)")
+    by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
+               **base["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

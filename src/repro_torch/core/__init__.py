@@ -17,10 +17,13 @@ Public API:
   WriteAheadLog        — durable streaming: append-only CRC-checked journal
                          (TCQService(wal_dir=...) / TCQService.recover)
   temporal_kcore_query — one-shot convenience wrapper
+  PHCIndex / iphc_query — the paper's baseline (PHC-Index built on the
+                         device, Algorithm 1's online query on the host)
   tcd / tcd_batch      — the TCD operation (truncate + frontier peel + TTI)
   brute_force_query    — oracle
 """
 
+from repro_torch.core.baseline import PHCIndex, iphc_query  # noqa: F401
 from repro_torch.core.corecache import CacheView, CoreCache  # noqa: F401
 from repro_torch.core.engine import WavePipeline  # noqa: F401
 from repro_torch.core.graph import (DeviceTEL, GraphIngestError,  # noqa: F401

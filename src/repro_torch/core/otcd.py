@@ -26,6 +26,11 @@ truncation.  With ``cache=`` the engine keeps a TTI-keyed core cache
 appended batch; with ``resilience=`` every window entry pins a
 degradation ladder (``core/wave.py``) in place of the single step.
 
+**Custom degrees.**  ``TCQEngine(graph, degree_fn)`` peels with
+``degree_fn`` in place of the paper's distinct-neighbour degree
+(see ``core/tcd.py``).  Only the serial TCD path carries it: a wave query
+runs serial, ``query_batch`` loops ``query``, and the core cache is off.
+
 The engine runs on the card unless told otherwise: ``TCQEngine(graph)``
 resolves to CUDA and raises when there is none.  ``device="cpu"`` runs the
 plain PyTorch versions of the kernels.
@@ -47,7 +52,7 @@ from repro_torch.core.graph import DeviceTEL, TemporalGraph, pow2_capacity
 from repro_torch.core.intervals import IntervalSet
 from repro_torch.core.results import CoreResult, QueryStats, TCQResult
 from repro_torch.core.scheduler import QueryState, autotune_wave
-from repro_torch.core.tcd import tcd
+from repro_torch.core.tcd import TCDResult, tcd
 from repro_torch.core.wave import ResilienceConfig, make_wave_step_fn
 from repro_torch.kernels.segdeg.ops import make_banded_segsum
 
@@ -99,6 +104,10 @@ class TCQEngine:
     composite lowering (torch gathers + the segdeg kernel), None (default)
     the fused kernel on CUDA.  On the CPU both run plain PyTorch.
 
+    ``degree_fn`` (second positional, as in the JAX package) replaces the
+    degree semantics on the serial path (see the module docstring); it
+    runs on the engine's device and forces ``core_cache`` to None.
+
     ``cache`` is True (a default :class:`CoreCache`), an instance, or
     None/False (off, the default for a bare engine).  ``resilience`` is
     True (a default :class:`ResilienceConfig`), a config, or None/False:
@@ -113,8 +122,8 @@ class TCQEngine:
     k >= 1, and never appear in results.
     """
 
-    def __init__(self, graph: TemporalGraph, *, device=None,
-                 use_kernel: Optional[bool] = None, mesh=None,
+    def __init__(self, graph: TemporalGraph, degree_fn=None, *,
+                 device=None, use_kernel: Optional[bool] = None, mesh=None,
                  combine=None, cache=None, resilience=None):
         for name, val in (("mesh", mesh), ("combine", combine)):
             if val is not None and val is not False:
@@ -124,9 +133,12 @@ class TCQEngine:
         self.device = resolve_device(device)
         self._use_kernel = (self.device.type == "cuda"
                             if use_kernel is None else bool(use_kernel))
+        self._degree_fn = degree_fn
         if cache is True:
             cache = CoreCache()
-        self.core_cache: Optional[CoreCache] = cache or None
+        # cached cores are only sound for the standard degree
+        self.core_cache: Optional[CoreCache] = \
+            (cache or None) if degree_fn is None else None
         if resilience is True:
             resilience = ResilienceConfig()
         self._resilience: Optional[ResilienceConfig] = resilience or None
@@ -367,6 +379,16 @@ class TCQEngine:
         return CacheView(self.core_cache,
                          self.epoch if epoch is None else int(epoch), k, h)
 
+    # ------------------------------------------------------------- primitives
+    def _tcd(self, alive, ts, te, k, h,
+             wt: Optional[WindowTEL] = None) -> TCDResult:
+        """One TCD cell: on the engine's full TEL when ``wt`` is None,
+        else on the window truncation, with the engine's ``degree_fn``."""
+        tel = self.tel if wt is None else wt.tel
+        nv = self.num_vertices if wt is None else wt.num_vertices
+        return tcd(tel, alive, ts, te, k, h, num_vertices=nv,
+                   degree_fn=self._degree_fn)
+
     # ------------------------------------------------------------------ query
     def query(self, k: int, Ts: int, Te: int, *, h: int = 1,
               algorithm: str = "otcd", mode: str = "serial",
@@ -381,6 +403,7 @@ class TCQEngine:
         steps in flight; ``wave="auto"`` autotunes W).
         h: link-strength lower bound (paper §6.2); 1 = plain TCQ.
         min_span/max_span: time-span constraint (paper §6.2).
+        With a ``degree_fn`` the query runs serial on the full TEL.
         """
         if mode not in ("serial", "wave"):
             raise ValueError(
@@ -393,7 +416,12 @@ class TCQEngine:
         if n == 0:
             return TCQResult([], stats)
         prune = algorithm == "otcd"
-        if mode == "wave":
+        if self._degree_fn is not None:
+            # the fused step knows only the standard degree; a custom one
+            # is written against the graph's real TEL, never a truncation
+            stats.window_edges = self.graph.num_edges
+            cores = self._run_serial(uts, k, h, prune, stats)
+        elif mode == "wave":
             pipe, wt, wave = self.make_pool(int(uts[0]), int(uts[-1]),
                                             wave=wave, depth=depth)
             stats.window_edges = wt.window_edges
@@ -421,10 +449,15 @@ class TCQEngine:
         batch, and per-lane windows keep each query's exact semantics, so
         every returned result is bit-identical to running that query
         alone.  Per-query stats carry that query's schedule counters;
-        pipeline counters describe the shared batch.
+        pipeline counters describe the shared batch.  With a
+        ``degree_fn`` each request runs alone through :meth:`query`.
         """
         t0 = time.perf_counter()
         reqs = [dict(r) for r in requests]
+        if self._degree_fn is not None:
+            return [self.query(int(r["k"]), int(r["ts"]), int(r["te"]),
+                               h=int(r.get("h", 1)), algorithm=algorithm)
+                    for r in reqs]
         prune = algorithm == "otcd"
         outs: List[Optional[TCQResult]] = [None] * len(reqs)
         states: List[Tuple[int, QueryState]] = []
@@ -463,12 +496,14 @@ class TCQEngine:
         return outs
 
     # ----------------------------------------------------------- serial mode
-    def _run_serial(self, uts, k, h, prune, stats, wt: WindowTEL):
+    def _run_serial(self, uts, k, h, prune, stats,
+                    wt: Optional[WindowTEL] = None):
         n = uts.size
         idx_of = {int(t): i for i, t in enumerate(uts)}
         pruned: Dict[int, IntervalSet] = defaultdict(IntervalSet)
         results: Dict[Tuple[int, int], CoreResult] = {}
-        ones = self._ones if wt.num_vertices == self._ones.shape[0] else \
+        ones = self._ones if wt is None or \
+            wt.num_vertices == self._ones.shape[0] else \
             torch.ones(wt.num_vertices, dtype=torch.bool, device=self.device)
         empty_col_max = -1          # cells (r, c<=bound) are provably empty
         row_alive = None            # warm start across rows (Theorem 1)
@@ -491,8 +526,7 @@ class TCQEngine:
                     warm = row_alive
                 else:
                     warm = ones
-                res = tcd(wt.tel, warm, int(uts[i]), int(uts[j]), k,
-                                  h, num_vertices=wt.num_vertices)
+                res = self._tcd(warm, int(uts[i]), int(uts[j]), k, h, wt)
                 stats.cells_evaluated += 1
                 stats.device_steps += 1
                 # one host read per cell: edge count and TTI together
@@ -548,6 +582,6 @@ class TCQEngine:
 
 
 def temporal_kcore_query(graph: TemporalGraph, k: int, Ts: int, Te: int, *,
-                         device=None, **kw) -> TCQResult:
+                         device=None, degree_fn=None, **kw) -> TCQResult:
     """One-shot convenience wrapper (builds a throwaway engine)."""
-    return TCQEngine(graph, device=device).query(k, Ts, Te, **kw)
+    return TCQEngine(graph, degree_fn, device=device).query(k, Ts, Te, **kw)

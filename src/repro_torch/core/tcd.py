@@ -13,6 +13,10 @@ link-strength extension, §6.2).  The JAX package computes these sums with
 XLA's ``segment_sum`` outside any Pallas kernel, so this path is plain
 torch (``index_add_``) on every device.  ``lax.while_loop`` becomes a
 Python loop with one host read per iteration.
+
+``degree_fn`` replaces those semantics: any
+``degree_fn(tel, ea, h, *, num_vertices) -> [V] int32`` over the torch
+``DeviceTEL`` and the [E] bool edge activity, run on the TEL's device.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ class TCDResult(NamedTuple):
     tti_hi: torch.Tensor   # 0-d int32 (I32_MIN when core is empty)
     n_edges: torch.Tensor  # 0-d int32
     n_verts: torch.Tensor  # 0-d int32
+    peel_iters: int = 0    # fixpoint iterations (one host read each)
 
 
 def edge_activity(tel: DeviceTEL, alive: torch.Tensor, ts, te
@@ -59,35 +64,41 @@ def degrees(tel: DeviceTEL, ea: torch.Tensor, h, *,
 
 
 def tcd(tel: DeviceTEL, alive: torch.Tensor, ts, te, k, h,
-        *, num_vertices: int) -> TCDResult:
+        *, num_vertices: int, degree_fn=None) -> TCDResult:
     """One TCD operation: truncate to [ts, te], peel to the k-core fixpoint.
 
     ``alive`` may be any superset core's vertex mask (Theorem 1) — all-ones
     for a cold start; it is not modified.
     """
+    dfn = degree_fn or degrees
     win = (tel.t >= ts) & (tel.t <= te)
     cur = alive
+    iters = 0
     # edge activity rides along: the final iteration observes new == cur,
     # so the ea it computed is exactly ea(fixpoint)
     while True:
         ea = win & cur[tel.src] & cur[tel.dst]
-        new = cur & (degrees(tel, ea, h, num_vertices=num_vertices) >= k)
+        new = cur & (dfn(tel, ea, h, num_vertices=num_vertices) >= k)
         changed = bool((new != cur).any())
+        iters += 1
         cur = new
         if not changed:
             break
     tti_lo, tti_hi, n_edges = tti_and_count(ea, tel.t)
     n_verts = cur.sum(dtype=torch.int32)
-    return TCDResult(cur, tti_lo, tti_hi, n_edges, n_verts)
+    return TCDResult(cur, tti_lo, tti_hi, n_edges, n_verts, iters)
 
 
 def tcd_batch(tel: DeviceTEL, alive: torch.Tensor, ts, te, k, h,
-              *, num_vertices: int) -> TCDResult:
+              *, num_vertices: int, degree_fn=None) -> TCDResult:
     """Q independent cells (alive: [Q, V]; ts/te: [Q]), each peeled by
-    :func:`tcd`; fields are stacked along a leading lane axis."""
+    :func:`tcd`; tensor fields are stacked along a leading lane axis and
+    ``peel_iters`` sums the lanes'."""
     res = [tcd(tel, alive[q], int(ts[q]), int(te[q]), k, h,
-               num_vertices=num_vertices) for q in range(alive.shape[0])]
-    return TCDResult(*(torch.stack(f) for f in zip(*res)))
+               num_vertices=num_vertices, degree_fn=degree_fn)
+           for q in range(alive.shape[0])]
+    *fields, iters = zip(*res)
+    return TCDResult(*(torch.stack(f) for f in fields), sum(iters))
 
 
 def coreness(tel: DeviceTEL, ts, te, *, num_vertices: int,

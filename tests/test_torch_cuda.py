@@ -16,7 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import TCQEngine, TemporalGraph  # noqa: E402
+from repro_torch.core import (PHCIndex, TCQEngine,  # noqa: E402
+                              TemporalGraph, iphc_query)
 from repro_torch.core.wave import (make_composite_step,  # noqa: E402
                                    make_wave_step_fn)
 from repro_torch.graphs import planted_cores, powerlaw_temporal  # noqa: E402
@@ -266,6 +267,57 @@ def test_engine_on_card_matches_cpu_engine(cuda, use_kernel, graph):
             assert getattr(got.stats, f) == getattr(want.stats, f), f
     for got, want in zip(on_card.query_batch(reqs), on_cpu.query_batch(reqs)):
         assert got.by_tti().keys() == want.by_tti().keys()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 3])
+def test_phc_index_on_card_matches_cpu_and_otcd(cuda, seed):
+    """The PHC-Index built on the card (the default) equals the CPU
+    build bit for bit, with the same TCD calls and peel iterations, and
+    launches no kernel; iPHC on it equals OTCD serial and wave."""
+    g = planted_cores(seed=seed)
+    peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    on_card = PHCIndex(g, 3, 1, 40)
+    assert (peel.wave_peel.launches, segdeg.banded_segsum.launches) == (0, 0)
+    on_cpu = PHCIndex(g, 3, 1, 40, device="cpu")
+    np.testing.assert_array_equal(on_card.core_time, on_cpu.core_time)
+    np.testing.assert_array_equal(on_card.uts, on_cpu.uts)
+    assert (on_card.tcd_calls, on_card.peel_iters, on_card.host_syncs) == \
+        (on_cpu.tcd_calls, on_cpu.peel_iters, on_cpu.host_syncs)
+    got = iphc_query(g, on_card, 3, 1, 40)
+    eng = TCQEngine(g)
+    for mode in ("serial", "wave"):
+        chip_smoke.same_cores(got, eng.query(3, 1, 40, mode=mode), mode)
+
+
+def test_degree_fn_on_card_runs_serial(cuda):
+    """A custom degree runs on the card's tensors, serial even when wave
+    mode is asked for: no wave_peel launch, the cache off."""
+    from repro_torch.core.tcd import degrees
+
+    seen = set()
+
+    def edge_degree(tel, ea, h, *, num_vertices):
+        seen.add(ea.device.type)
+        w = ea.to(torch.int32)
+        out = torch.zeros(num_vertices, dtype=torch.int32, device=w.device)
+        return out.index_add_(0, tel.src, w).index_add_(0, tel.dst, w)
+
+    g = powerlaw_temporal(80, 900, 40, seed=4)
+    Ts, Te = g.span
+    stock = TCQEngine(g, degrees, cache=True)
+    assert stock.device.type == "cuda" and stock.core_cache is None
+    custom = TCQEngine(g, edge_degree)
+    peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    got = stock.query(3, Ts, Te, mode="wave")
+    mine = custom.query(3, Ts, Te, mode="wave")
+    assert (peel.wave_peel.launches, segdeg.banded_segsum.launches) == (0, 0)
+    assert seen == {"cuda"}
+    chip_smoke.same_cores(got, TCQEngine(g).query(3, Ts, Te, mode="wave"),
+                          "stock")
+    chip_smoke.same_cores(mine, TCQEngine(g, edge_degree, device="cpu")
+                          .query(3, Ts, Te), "custom vs CPU")
+    assert mine.stats.window_edges == g.num_edges
+    assert mine.by_tti().keys() != got.by_tti().keys()
 
 
 # ------------------------------------------------------- ssm_scan and LM

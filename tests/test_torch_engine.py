@@ -188,6 +188,92 @@ def test_options_not_ported_raise(option, value, item):
         TCQEngine(g, device="cpu", **{option: value})
 
 
+def _jax_edge_degree(tel, ea, h, *, num_vertices):
+    """A custom degree: alive parallel edges per vertex (h unused)."""
+    import jax
+
+    w = ea.astype(np.int32)
+    return (jax.ops.segment_sum(w, tel.src, num_segments=num_vertices)
+            + jax.ops.segment_sum(w, tel.dst, num_segments=num_vertices))
+
+
+def _torch_edge_degree(tel, ea, h, *, num_vertices):
+    """The port's counterpart of :func:`_jax_edge_degree`."""
+    w = ea.to(torch.int32)
+    out = torch.zeros(num_vertices, dtype=torch.int32, device=w.device)
+    return out.index_add_(0, tel.src, w).index_add_(0, tel.dst, w)
+
+
+def _degree_fn_engines(name):
+    g = GRAPHS[name]()
+    return (g, JEngine(g, _jax_edge_degree),
+            TCQEngine(TemporalGraph.from_state(g.state_dict()),
+                      _torch_edge_degree, device="cpu"))
+
+
+@pytest.mark.parametrize("mode", ["serial", "wave"])
+@pytest.mark.parametrize("name", ["planted", "powerlaw"])
+def test_degree_fn_query_matches_reference(name, mode):
+    """A custom degree peels the same cores in both packages; a wave query
+    runs serial on the full TEL (no pool, no window TEL)."""
+    g, je, te = _degree_fn_engines(name)
+    Ts, Te = g.span
+    differs = False
+    for k in (3, 5):
+        want = je.query(k, Ts, Te, mode=mode)
+        got = te.query(k, Ts, Te, mode=mode)
+        ctx = f"{name} {mode} k={k}"
+        assert_same_cores(got, want, ctx)
+        assert_same_counters(got, want, ctx)
+        assert got.stats.window_edges == g.num_edges, ctx
+        assert got.stats.peel_iters == 0, ctx
+        default = _engines_for(name)[0].query(k, Ts, Te)
+        differs |= default.by_tti().keys() != got.by_tti().keys()
+    assert te.stats()["window_tel"]["misses"] == 0
+    assert differs, "the custom degree changed no core: a weak case"
+
+
+def test_degree_fn_query_batch_and_wrapper_match_reference():
+    g, je, te = _degree_fn_engines("powerlaw")
+    Ts, Te = g.span
+    mid = (Ts + Te) // 2
+    reqs = [{"k": 4, "ts": Ts, "te": Te}, {"k": 3, "ts": Ts + 2, "te": mid},
+            {"k": 5, "ts": mid, "te": Te, "h": 2},
+            {"k": 4, "ts": Te + 5, "te": Te + 9}]     # empty window
+    for i, (got, want) in enumerate(zip(te.query_batch(reqs),
+                                        je.query_batch(reqs))):
+        assert_same_cores(got, want, f"request {i}")
+        assert_same_counters(got, want, f"request {i}")
+    got = temporal_kcore_query(te.graph, 4, Ts, Te, mode="wave",
+                               degree_fn=_torch_edge_degree, device="cpu")
+    assert_same_cores(got, je.query(4, Ts, Te))
+
+
+@pytest.mark.parametrize("mode", ["serial", "wave"])
+def test_stock_degrees_as_degree_fn_equal_default_engine(mode):
+    from repro_torch.core.tcd import degrees
+
+    je, te = _engines_for("planted")
+    custom = TCQEngine(te.graph, degrees, device="cpu", cache=True)
+    assert custom.core_cache is None
+    for k in (2, 3):
+        got = custom.query(k, 1, 40, mode=mode)
+        want = te.query(k, 1, 40)
+        assert_same_cores(got, want, f"k={k}")
+        assert got.stats.cells_evaluated == want.stats.cells_evaluated
+        assert_same_cores(got, je.query(k, 1, 40), f"k={k} vs JAX")
+
+
+@pytest.mark.parametrize("option,value", [("mesh", object()),
+                                          ("combine", "psum")])
+def test_degree_fn_engine_options_not_ported_raise(option, value):
+    from repro_torch.core.tcd import degrees
+
+    g = TemporalGraph.from_state(planted_cores(seed=1).state_dict())
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        TCQEngine(g, degrees, device="cpu", **{option: value})
+
+
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
