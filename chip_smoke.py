@@ -66,6 +66,18 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    passed as a custom ``degree_fn``) in wave mode: equal to the default
    engine, serial (no wave_peel launch), its core cache off.  The build,
    the iPHC query and the ``degree_fn`` query launch no kernel;
+9. serves the rest of the LM families in bf16 with seeded weights, each
+   at its published widths (``FAMILY_RUNS``): granite-moe-1b-a400m (MoE,
+   32 experts top-8), rwkv6-1.6b, whisper-small (1,500 encoder frames,
+   a 448-position decoder cache), qwen2-vl-72b cut to 16 layers (patch
+   embeddings with M-RoPE positions; each decode step feeds one seeded
+   embedding) and Jamba cut to 2 layers with its experts (a Mamba + MoE
+   layer): a prefill of 2 prompts, then 32 greedy ``serve_step``s, each
+   path with the launch counters zeroed before it and read after it
+   (only Jamba's Mamba layers launch a kernel: ssm_scan 2 and 64); every
+   logit finite and every token below the vocabulary; RWKV's 64-token
+   chunk held to 64 single-token steps at full width; and each family's
+   smoke-size model on the card held to the CPU;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -528,15 +540,21 @@ def phase_main(dev) -> dict:
 
 
 # ------------------------------------------ phase 4: where the time goes
-def profiled(fn, what: str, top: int = 6) -> None:
+def profiled(fn, what: str, top: int = 6, cpu_ops: bool = True):
     """Run ``fn`` once under ``torch.profiler`` and log the device's busy
-    share of its wall time and the kernels that took the most of it."""
+    share of its wall time and the kernels that took the most of it.
+    Returns the busy share (0-1), None when the profiler saw no device
+    time.  ``cpu_ops=False`` traces the device alone: a path of tens of
+    thousands of small operators then takes seconds to trace, not a
+    minute, and the host runs at nearly its untraced pace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -550,11 +568,12 @@ def profiled(fn, what: str, top: int = 6) -> None:
     if not rows:
         log(f"profile of {what}: the profiler saw no device time "
             "(not measured)")
-        return
+        return None
     log(f"profile of {what}: wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
     for name, ms, count in rows[:top]:
         log(f"  {ms:9.2f} ms  {count:5d} x  {name[:90]}")
+    return busy / wall_ms
 
 
 def phase_profile(main: dict) -> None:
@@ -1348,6 +1367,286 @@ def phase_baseline(dev, g, req: dict) -> dict:
     return {"by_path": by_path}
 
 
+# ---------------------------------------------- phase 9: the LM families
+# (path, arch, cuts, prompt tokens, cache positions, encoder frames): each
+# family the JAX package serves beyond phase 6's, at its published widths;
+# a cut only where one card cannot hold the model.
+FAMILY_RUNS = (
+    ("granite_moe", "granite-moe-1b-a400m", {}, 2_048, 32_768, None),
+    ("rwkv6", "rwkv6-1.6b", {}, 2_048, 32_768, None),
+    # whisper's 30-s window is 1,500 encoder frames (n_audio_ctx) and its
+    # decoder holds 448 positions (n_text_ctx), arXiv:2212.04356
+    ("whisper", "whisper-small", {}, 64, 448, 1_500),
+    # 80 layers are 133.1 GiB in bf16 (71.46 B parameters)
+    ("qwen2_vl", "qwen2-vl-72b", {"n_layers": 16}, 2_048, 32_768, None),
+    # one Mamba + dense and one Mamba + MoE layer (16 experts top-2); the
+    # 8-layer period with its experts is 84.5 GiB in bf16
+    ("jamba_moe", JAMBA, {"n_layers": 2}, 2_048, 32_768, None),
+)
+FAMILY_SMOKE = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e", JAMBA,
+                "rwkv6-1.6b", "whisper-small", "qwen2-vl-72b")
+
+
+def family_batch(cfg, b: int, s: int, s_enc, rng, dev) -> dict:
+    """A seeded prompt as the JAX package's batch_specs lays it out:
+    tokens, or patch embeddings with M-RoPE positions [3, B, S] (two
+    32 x 32 frames: time, row, column); encoder frames for whisper."""
+    import numpy as np
+    import torch
+
+    batch = {}
+    if cfg.input_mode == "embeds":
+        batch["embeds"] = torch.from_numpy(rng.normal(
+            0, 1, (b, s, cfg.d_model)).astype(np.float32)).to(dev)
+    else:
+        batch["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    if s_enc:
+        batch["enc_embeds"] = torch.from_numpy(rng.normal(
+            0, 1, (b, s_enc, cfg.d_model)).astype(np.float32)).to(dev)
+    if cfg.pos == "mrope":
+        i = torch.arange(s, dtype=torch.int32)
+        pos = torch.stack([i // 1024, (i // 32) % 32, i % 32])
+        batch["positions"] = pos[:, None].expand(3, b, s).contiguous().to(dev)
+    return batch
+
+
+def decode_inputs(cfg, b: int, n: int, rng, dev) -> list:
+    """The input of each decode step past the first: None (feed the
+    greedy token back) or, for an embeds-input model, a seeded embedding
+    [B, 1, d] (its stub frontend has no token table)."""
+    import numpy as np
+    import torch
+
+    if cfg.input_mode != "embeds":
+        return [None] * n
+    e = torch.from_numpy(rng.normal(0, 1, (n, b, 1, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    return list(e)
+
+
+def greedy(model, cache, tok, start: int, feeds: list):
+    """serve_step from position ``start``: each step's input is the last
+    greedy token, or the embedding ``feeds`` gives.  Returns the tokens
+    [B, len(feeds)]."""
+    import torch
+    from repro_torch.launch.steps import serve_step
+
+    toks = []
+    for i, e in enumerate(feeds):
+        step = {"tokens": tok} if e is None else {"embeds": e}
+        tok, _ = serve_step(model, cache, {**step, "cache_index": start + i})
+        toks.append(tok)
+    return torch.cat(toks, 1)
+
+
+def phase_families_smoke(dev) -> None:
+    """Each family's smoke-size model (f32) with the same weights on the
+    card and on the CPU: prefill logits and 8 teacher-forced decode steps'
+    logits within rtol=1e-4, atol=1e-4 x min(1, max|CPU|)
+    (tests/test_torch_lm.py's ``_close``); the greedy tokens of both are
+    reported."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import prefill_step
+    from repro_torch.models.transformer import (Transformer, init_cache,
+                                                init_params)
+
+    b, s, n, s_max = 2, 16, 8, 32
+    t0 = time.perf_counter()
+    for arch in FAMILY_SMOKE:
+        cfg = get_smoke_config(arch)
+        s_enc = 12 if cfg.encoder_layers else None
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(5)
+        prompt = family_batch(cfg, b, s, s_enc, rng, "cpu")
+        forced = family_batch(cfg, b, n, None, rng, "cpu")
+        feeds = decode_inputs(cfg, b, n, rng, "cpu")
+        out = []
+        for where in ("cpu", dev):
+            model = Transformer(cfg, params, device=where)
+            d = model.device
+            at = {k: v.to(d) for k, v in prompt.items()}
+            cache = init_cache(cfg, b, s_max, d, s_enc=s_enc)
+            logits = [prefill_step(model, at, cache)[0]]
+            with torch.inference_mode():
+                for i in range(n):
+                    step = {"cache_index": s + i}
+                    for k in ("tokens", "embeds"):
+                        if k in forced:
+                            step[k] = forced[k][:, i:i + 1].to(d)
+                    if cfg.pos == "mrope":
+                        step["positions"] = torch.full(
+                            (3, b, 1), s + i, dtype=torch.int32, device=d)
+                    h, _, cache = model(step, mode="decode", cache=cache)
+                    logits.append(model.logits_from_hidden(h))
+            last, cache = prefill_step(model, at, cache)
+            tok = last.argmax(-1).to(torch.int32)
+            toks = greedy(model, cache, tok, s,
+                          [None if e is None else e.to(d) for e in feeds])
+            out.append((torch.cat(logits, 1).cpu(), toks.cpu()))
+            del model, cache
+        (lc, tc), (lg, tg) = out
+        err = float((lg - lc).abs().max())
+        atol = 1e-4 * min(1.0, float(lc.abs().max()))
+        check(bool(torch.isfinite(lg).all()) and torch.allclose(
+            lg, lc, rtol=1e-4, atol=atol),
+            f"smoke {arch}: card vs CPU logits differ by {err}")
+        log(f"smoke {arch} (f32, d_model {cfg.d_model}, {cfg.n_layers} "
+            f"layers): prefill and {n} teacher-forced decode logits on the "
+            f"card within rtol=1e-4, atol={atol:.3g} of the CPU (max |diff| "
+            f"{err:.3g}); greedy tokens "
+            f"{'equal' if torch.equal(tg, tc) else 'DIFFERENT'}")
+    log(f"smoke families on the card vs the CPU: {time.perf_counter() - t0:.1f}s")
+
+
+def hold_rwkv_chunks(model, tokens) -> None:
+    """RWKV at its published width: layer 0's time mix over the first 64
+    prompt tokens in one 64-token chunk against 64 one-token steps, both
+    from a zero state with the state carried in float32.  The two forms
+    differ by bf16 rounding only: each within a relative (Frobenius)
+    error of 1e-2, 2.6 units of bf16 rounding (2**-8)."""
+    import torch
+    from repro_torch.models.layers import norm
+    from repro_torch.models.rwkv import rwkv_time_mix, rwkv_time_mix_step
+    from repro_torch.models.transformer import _zero_state
+
+    cfg = model.cfg
+    p0 = model.params["dec"].select(0)["sub0"]
+    with torch.inference_mode():
+        x = norm(model.params["embed"]["tok"][tokens[:, :64]], p0["ln1"],
+                 cfg.norm)
+        st = _zero_state(cfg, cfg.layer_specs()[0], x)
+        y, (S, _) = rwkv_time_mix(p0["mixer"], x, cfg, st, chunk=64)
+        ys = []
+        for i in range(64):
+            yi, st = rwkv_time_mix_step(p0["mixer"], x[:, i:i + 1], cfg, st)
+            ys.append(yi)
+        y1 = torch.cat(ys, 1)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    ry, rs = rel(y1, y), rel(st[0], S)
+    check(ry <= 1e-2 and rs <= 1e-2 and bool(torch.isfinite(y).all()),
+          f"rwkv chunk 64 vs 64 steps: relative error {ry} (out), "
+          f"{rs} (state)")
+    log(f"rwkv6 layer 0 at d_model {cfg.d_model} ({cfg.dtype}): one "
+        f"64-token chunk vs 64 single-token steps from a zero state: "
+        f"relative error {ry:.3g} (out, max |diff| "
+        f"{float((y1.float() - y.float()).abs().max()):.3g}), {rs:.3g} "
+        f"(f32 state), within 1e-2")
+
+
+def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
+    """Each config of ``runs`` at its published widths in bf16, seeded
+    weights drawn on the card: a prefill of 2 prompts into its cache, then
+    ``n_dec`` greedy ``serve_step``s, each path with the launch counters
+    zeroed before it and read after it; only the Mamba layers launch a
+    kernel (ssm_scan, one per layer and pass).  Each model is freed before
+    the next is built."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import prefill_step
+    from repro_torch.models.transformer import Transformer, init_cache
+
+    on_card = dev.type == "cuda"
+    by_path, summary = {}, {}
+    b = 2
+    for name, arch, cuts, s, s_max, s_enc in runs:
+        t_run = time.perf_counter()
+        full = get_config(arch)
+        cfg = full.scaled(**cuts)
+        t0 = time.perf_counter()
+        model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                            device=dev)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        specs = [sp.mixer + ("+moe" if sp.mlp == "moe" else "")
+                 for sp in cfg.layer_specs()]
+        cut = ", ".join(f"{k} {getattr(full, k)} -> {v}"
+                        for k, v in cuts.items()) or "none"
+        widths = (f"d_model {cfg.d_model}, {cfg.n_layers} layers "
+                  f"{sorted(set(specs))}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+        if cfg.moe:
+            widths += (f", {cfg.moe.num_experts} experts top-"
+                       f"{cfg.moe.top_k} d_expert {cfg.moe.d_expert}"
+                       f"{' + shared' if cfg.moe.shared_expert else ''}")
+        if cfg.encoder_layers:
+            widths += f", {cfg.encoder_layers} encoder layers"
+        log(f"{name}: {arch} ({widths}); cuts: {cut}; {cfg.dtype}, "
+            f"{n_params / 1e9:.3f} B parameters "
+            f"({n_params * 2 / 2**30:.1f} GiB), seeded init on the card in "
+            f"{init_s:.1f}s")
+
+        rng = np.random.default_rng(17)
+        prompt = family_batch(cfg, b, s, s_enc, rng, dev)
+        feeds = decode_inputs(cfg, b, n_dec, rng, dev)
+        cache = init_cache(cfg, b, s_max, dev, s_enc=s_enc)
+
+        def prefill():
+            return prefill_step(model, prompt, cache)[0]
+
+        def first_token(last):
+            return last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+        greedy(model, cache, first_token(prefill()), s, feeds[:2])  # warm-up
+        last, pre_s, n_pre = run_path(prefill)
+        tok0 = first_token(last)
+        toks, dec_s, n_dec_run = run_path(
+            lambda: greedy(model, cache, tok0, s, feeds))
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        check(tuple(last.shape) == (b, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(last).all()),
+              f"{name}: prefill logits")
+        check(tuple(toks.shape) == (b, n_dec) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab, f"{name}: decoded tokens")
+        n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+        for path, n, want in ((f"{name}_prefill", n_pre, n_mamba),
+                              (f"{name}_decode", n_dec_run,
+                               n_mamba * n_dec)):
+            by_path[path] = n
+            if on_card:
+                check(n == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want},
+                      f"{path}: launches {n}, want ssm_scan {want} and no "
+                      "other")
+        if name == "rwkv6":
+            hold_rwkv_chunks(model, prompt["tokens"])
+        t_prof = time.perf_counter()
+        busy_pre = profiled(prefill, f"{name} prefill", top=4,
+                            cpu_ops=False)
+        busy_dec = profiled(lambda: greedy(model, cache, tok0, s, feeds[:4]),
+                            f"4 {name} decode steps", top=4, cpu_ops=False)
+        t_prof = time.perf_counter() - t_prof
+        summary[name] = {
+            "arch": arch, "cuts": cuts, "params": n_params,
+            "prefill_tokens": b * s, "cache_positions": s_max,
+            "encoder_frames": s_enc, "prefill_s": pre_s,
+            "prefill_tokens_per_s": b * s / pre_s,
+            "decode_ms_per_step": 1e3 * dec_s / n_dec,
+            "peak_gib": peak / 2**30, "prefill_busy": busy_pre,
+            "decode_busy": busy_dec}
+        log(f"{name}: prefill {b} x {s} tokens"
+            f"{f' (encoder {b} x {s_enc} frames)' if s_enc else ''} into a "
+            f"{s_max}-position cache in {pre_s:.3f}s ({b * s / pre_s:.0f} "
+            f"tokens/s); {n_dec} greedy steps of {b} in {dec_s:.3f}s "
+            f"({1e3 * dec_s / n_dec:.2f} ms a step); peak "
+            f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated since "
+            f"the weights were drawn); first tokens {toks[:, :6].tolist()}; "
+            f"launches prefill {n_pre}, decode {n_dec_run}; {name} took "
+            f"{time.perf_counter() - t_run:.1f}s ({t_prof:.1f}s profiling)")
+        del model, cache, prompt, feeds, last, toks
+        if on_card:
+            torch.cuda.empty_cache()
+    log("families: " + json.dumps(summary))
+    return {"by_path": by_path}
+
+
 def main() -> int:
     try:
         import torch
@@ -1407,8 +1706,15 @@ def main() -> int:
     done("phase 7 (serving)")
     base = phase_baseline(dev, g, main_run["reqs"][0])
     done("phase 8 (baseline)")
+    del g
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    phase_families_smoke(dev)
+    fam = phase_families(dev)
+    log(f"phase 9 took {time.perf_counter() - t9:.1f}s")
+    done("phase 9 (LM families)")
     by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
-               **base["by_path"]}
+               **base["by_path"], **fam["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

@@ -5,7 +5,11 @@ PyTorch counterparts of the inner ``step`` functions of
 device and without a mesh.  Both run on the model's device (CUDA unless
 the model was made elsewhere) under ``torch.inference_mode()`` and update
 the cache in place, where the JAX steps return a new (donated) one.  The
-train step waits for the training slice (ROADMAP A12).
+batches are the JAX package's (``repro.launch.shapes.batch_specs``):
+"tokens" [B, S], or "embeds" [B, S, d] for an ``input_mode="embeds"``
+model; "enc_embeds" [B, S_enc, d] at prefill for an encoder-decoder
+model; "positions" [3, B, S] for M-RoPE.  The train step waits for the
+training slice (ROADMAP A12).
 
     model = Transformer(cfg)                      # on CUDA by default
     cache = init_cache(cfg, batch=2, s_max=4096)
@@ -26,8 +30,8 @@ from repro_torch.models.transformer import Transformer
 @torch.inference_mode()
 def prefill_step(model: Transformer, batch: dict, cache: dict):
     """Fill ``cache`` (zeroed first, as the JAX step starts from a zero
-    cache) with the prompt ``batch["tokens"]`` [B, S] from position 0.
-    Returns (last_logits [B, 1, padded_vocab], cache)."""
+    cache) with the prompt from position 0.  Returns (last_logits
+    [B, 1, padded_vocab], cache)."""
     for sub in cache.values():
         for t in sub.values():
             t.zero_()
@@ -37,15 +41,19 @@ def prefill_step(model: Transformer, batch: dict, cache: dict):
 
 @torch.inference_mode()
 def serve_step(model: Transformer, cache: dict, batch: dict):
-    """One greedy decode token: ``batch["tokens"]`` [B, 1] at position
-    ``batch["cache_index"]`` (also its RoPE position unless
-    ``batch["positions"]`` is given, as the JAX decode batch always has
-    it).  Returns (next_token [B, 1] int32, cache)."""
+    """One greedy decode token: ``batch["tokens"]`` [B, 1] (or "embeds"
+    [B, 1, d]) at position ``batch["cache_index"]``.  That is also its
+    position unless ``batch["positions"]`` is given, as the JAX decode
+    batch always has it: [B, 1], or [3, B, 1] for M-RoPE.  Returns
+    (next_token [B, 1] int32, cache)."""
     if "positions" not in batch:
-        tokens = batch["tokens"]
+        x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        shape = (x.shape[0], 1)
+        if model.cfg.pos == "mrope":
+            shape = (3,) + shape
         batch = {**batch, "positions": torch.full(
-            tokens.shape, int(batch["cache_index"]), dtype=torch.int32,
-            device=tokens.device)}
+            shape, int(batch["cache_index"]), dtype=torch.int32,
+            device=x.device)}
     hidden, _, cache = model(batch, mode="decode", cache=cache)
     logits = model.logits_from_hidden(hidden)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

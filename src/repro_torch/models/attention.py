@@ -1,10 +1,10 @@
 """GQA attention: train/prefill (dense, or chunked online softmax for long
 KV) and decode (cached KV).
 
-PyTorch counterpart of ``repro.models.attention`` for self-attention:
-grouped KV (any ratio), sliding window, attention-logit softcap, QKV bias
-and (M-)RoPE.  Cross-attention (the whisper decoder) waits for the
-encoder-decoder slice (ROADMAP A12).
+PyTorch counterpart of ``repro.models.attention``: grouped KV (any
+ratio), sliding window, attention-logit softcap, QKV bias, (M-)RoPE,
+bidirectional self-attention (the whisper encoder) and cross-attention to
+encoder states (the whisper decoder).
 
 Masks are built from sequence ranks, never from per-batch position
 tensors, so the mask is a batch-free [1, Sq, Sk] bias; RoPE uses the real
@@ -109,15 +109,20 @@ def _attend_chunked(q, k, v, q_rank, k_rank, causal, window, scale, cap,
 
 
 def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
-              *, cache: Optional[dict] = None, cache_index=None):
-    """Causal self-attention sublayer (projections + rope + attend +
-    out-proj).
+              *, causal: bool = True, cache: Optional[dict] = None,
+              cache_index=None, kv_source: Optional[torch.Tensor] = None):
+    """Attention sublayer (projections + rope + attend + out-proj).
 
-    cache: {"k", "v"} [B, S_max, KV, hd] for prefill/decode.  The new keys
-    and values are written into it in place at ``cache_index`` (clamped so
-    the write fits, as ``lax.dynamic_update_slice`` clamps), and the
-    attention reads the whole cache with the unwritten tail masked.
-    Returns out [B, S, d].
+    Self-attention: cache {"k", "v"} [B, S_max, KV, hd] for prefill and
+    decode.  The new keys and values are written into it in place at
+    ``cache_index`` (clamped so the write fits, as
+    ``lax.dynamic_update_slice`` clamps), and the attention reads the whole
+    cache with the unwritten tail masked.
+
+    Cross-attention: keys and values from ``kv_source`` (encoder states
+    [B, S_enc, d]), written in place into ``cache`` {"xk", "xv"} when one
+    is given (prefill); or, without ``kv_source``, read from that cache
+    (decode).  No RoPE, every key visible.  Returns out [B, S, d].
     """
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
@@ -127,17 +132,28 @@ def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
     q = _split_heads(x @ p["wq"], h, hd)
     if "bq" in p:
         q = q + p["bq"].reshape(1, 1, h, hd)
-    k = _split_heads(x @ p["wk"], kvh, hd)
-    v = _split_heads(x @ p["wv"], kvh, hd)
-    if "bk" in p:
-        k = k + p["bk"].reshape(1, 1, kvh, hd)
-        v = v + p["bv"].reshape(1, 1, kvh, hd)
-    if cfg.pos in ("rope", "mrope"):
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    cross = kv_source is not None or (cache is not None and "xk" in cache)
+    if cross and kv_source is None:
+        k, v = cache["xk"], cache["xv"]
+    else:
+        src = kv_source if cross else x
+        k = _split_heads(src @ p["wk"], kvh, hd)
+        v = _split_heads(src @ p["wv"], kvh, hd)
+        if "bk" in p:
+            k = k + p["bk"].reshape(1, 1, kvh, hd)
+            v = v + p["bv"].reshape(1, 1, kvh, hd)
+        if not cross and cfg.pos in ("rope", "mrope"):
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     dev = x.device
-    if cache is not None:
+    if cross and cache is not None and kv_source is not None:
+        if tuple(cache["xk"].shape) != tuple(k.shape):
+            raise ValueError(f"encoder keys {tuple(k.shape)} do not fit a "
+                             f"cross cache of {tuple(cache['xk'].shape)}")
+        cache["xk"].copy_(k)
+        cache["xv"].copy_(v)
+    elif not cross and cache is not None:
         if s > cache["k"].shape[1]:
             raise ValueError(f"{s} tokens do not fit a cache of "
                              f"{cache['k'].shape[1]}")
@@ -150,18 +166,21 @@ def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
     # ---- batch-free sequence-rank masks ----
     sk = k.shape[1]
     k_rank = torch.arange(sk, dtype=torch.int32, device=dev)[None]
-    if cache is not None:
+    k_valid, window = None, spec.window
+    if cross:
+        q_rank = torch.zeros((1, s), dtype=torch.int32, device=dev)
+        causal, window = False, None
+    elif cache is not None:
         q_rank = (ci + torch.arange(s, dtype=torch.int32, device=dev))[None]
         k_valid = k_rank <= ci + s - 1
     else:
         q_rank = torch.arange(s, dtype=torch.int32, device=dev)[None]
-        k_valid = None
 
     if sk > cfg.attn_chunk_threshold and s > 1:
-        out = _attend_chunked(q, k, v, q_rank, k_rank, True, spec.window,
+        out = _attend_chunked(q, k, v, q_rank, k_rank, causal, window,
                               scale, cfg.attn_softcap, k_valid=k_valid)
     else:
-        bias = _mask_bias(q_rank, k_rank, True, spec.window, k_valid)
+        bias = _mask_bias(q_rank, k_rank, causal, window, k_valid)
         out = _attend_dense(q, k, v, bias, scale, cfg.attn_softcap,
                             scores_f32=cfg.attn_scores_f32)
 

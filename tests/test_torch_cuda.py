@@ -418,6 +418,48 @@ def test_serve_step_on_card_matches_cpu(cuda):
                                        rtol=1e-4, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_SMOKE)
+def test_family_on_card_matches_cpu(cuda, arch):
+    """Each family's smoke model (f32; Jamba with its experts): prefill
+    and teacher-forced decode logits on the card within 1e-4 of the CPU,
+    caches included; only Mamba layers launch a kernel (ssm_scan)."""
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, s, n, s_max = 2, 12, 4, 20
+    s_enc = 9 if cfg.encoder_layers else None
+    rng = np.random.default_rng(4)
+    prompt = chip_smoke.family_batch(cfg, b, s, s_enc, rng, "cpu")
+    forced = chip_smoke.family_batch(cfg, b, n, None, rng, "cpu")
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    runs = []
+    for dev in ("cpu", cuda):
+        model = T.Transformer(cfg, params, device=dev)
+        cache = T.init_cache(cfg, b, s_max, dev, s_enc=s_enc)
+        n0 = scan.ssm_scan.launches
+        logits = [prefill_step(model, {k: v.to(dev) for k, v in
+                                       prompt.items()}, cache)[0]]
+        with torch.inference_mode():
+            for i in range(n):
+                step = {k: forced[k][:, i:i + 1].to(dev)
+                        for k in ("tokens", "embeds") if k in forced}
+                h, _, cache = model({**step, "cache_index": s + i},
+                                    mode="decode", cache=cache)
+                logits.append(model.logits_from_hidden(h))
+        launched = scan.ssm_scan.launches - n0
+        assert launched == (0 if dev == "cpu" else n_mamba * (1 + n))
+        runs.append((torch.cat(logits, 1).cpu(),
+                     {k: {n_: v.cpu() for n_, v in c.items()}
+                      for k, c in cache.items()}))
+    (lc, cc), (lg, cg) = runs
+    scale = min(1.0, float(lc.abs().max()))
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4 * scale)
+    for sub in cc:
+        for name in cc[sub]:
+            scale = min(1.0, float(cc[sub][name].abs().max()))
+            torch.testing.assert_close(cg[sub][name], cc[sub][name],
+                                       rtol=1e-4, atol=1e-4 * scale)
+
+
 # ------------------------------------------------------ serving on the card
 def _serve_graph():
     return powerlaw_temporal(300, 4_000, 400, burst_periods=4, seed=11)

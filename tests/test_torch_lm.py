@@ -5,8 +5,10 @@ Inputs come from seeded numpy draws and weights from the JAX package's
 both packages compute on the same numbers.  The port runs its plain
 versions here (the ssm_scan loop instead of the CUDA kernel);
 tests/test_torch_cuda.py holds the kernel to that loop on the card.
-Unless a test says otherwise the model is the smoke-size Jamba without
-experts (f32, 8 layers, d_model 64).
+Unless a test says otherwise the model is the smoke-size Jamba with its
+experts (f32, 8 layers, d_model 64).  tests/test_torch_families.py holds
+the MoE, RWKV, encoder-decoder and embeds-input pieces on their own, and
+the two families that take more than tokens (whisper, qwen2-vl).
 """
 
 import dataclasses
@@ -39,19 +41,14 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ssm import mamba_mix  # noqa: E402
 
 JAMBA = "jamba-1.5-large-398b"
-# the families this slice serves (dense and Mamba-hybrid decoders); the
-# Jamba entry is taken without its experts
-SERVED = [JAMBA, "gemma2-2b", "gemma-7b", "granite-34b", "qwen2-7b"]
-NOT_SERVED = {"granite-moe-1b-a400m": "MoE", "llama4-scout-17b-a16e": "MoE",
-              JAMBA: "MoE", "rwkv6-1.6b": "RWKV",
-              "whisper-small": "encoder-decoder",
-              "qwen2-vl-72b": "input_mode='embeds'"}
+# the decoder-only families fed by tokens alone (whisper needs encoder
+# frames and qwen2-vl embeddings: tests/test_torch_families.py)
+SERVED = [JAMBA, "gemma2-2b", "gemma-7b", "granite-34b", "qwen2-7b",
+          "granite-moe-1b-a400m", "llama4-scout-17b-a16e", "rwkv6-1.6b"]
 
 
 def _cfgs(arch, smoke=True, **over):
-    """(port config, JAX config) of one arch, Jamba without experts."""
-    if arch == JAMBA:
-        over.setdefault("moe", None)
+    """(port config, JAX config) of one arch."""
     port = get_smoke_config(arch) if smoke else get_config(arch)
     ref = jget_smoke(arch) if smoke else jget_config(arch)
     return port.scaled(**over), ref.scaled(**over)
@@ -209,12 +206,14 @@ def test_attend_dense_and_chunked_match_reference(window, cap):
 def test_forward_and_logits_match_reference(arch):
     cfg, jcfg, jp, model = _models(arch)
     tok = np.random.default_rng(0).integers(0, cfg.vocab, (2, 17))
-    jh, _, _ = JT.forward(jcfg, jp, {"tokens": jnp.asarray(tok, jnp.int32)},
-                          mode="train")
+    jh, jaux, _ = JT.forward(jcfg, jp,
+                             {"tokens": jnp.asarray(tok, jnp.int32)},
+                             mode="train")
     with torch.inference_mode():
         h, aux, cache = model({"tokens": torch.from_numpy(tok)})
         logits = model.logits_from_hidden(h)
-    assert cache is None and float(aux) == 0.0
+    assert cache is None and (float(aux) > 0) == (cfg.moe is not None)
+    _close(aux, jaux, 1e-4)
     _close(h, jh, 1e-4)
     _close(logits, JT.logits_from_hidden(jcfg, jp, jh), 1e-4)
 
@@ -237,8 +236,13 @@ def _prefill_decode(model, cfg, tok, s_max):
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_matches_own_forward(arch):
-    """Tolerances of tests/test_archs_smoke.py's prefill/decode test."""
-    cfg, _, _, model = _models(arch)
+    """Tolerances of tests/test_archs_smoke.py's prefill/decode test, and
+    its drop-free capacity for MoE (a capacity cut depends on the number
+    of tokens routed together)."""
+    moe = get_smoke_config(arch).moe
+    over = {} if moe is None else {"moe": dataclasses.replace(
+        moe, capacity_factor=float(moe.num_experts))}
+    cfg, _, _, model = _models(arch, **over)
     b, s = 2, 17
     tok = np.random.default_rng(1).integers(0, cfg.vocab, (b, s))
     with torch.inference_mode():
@@ -326,8 +330,8 @@ def test_prefill_step_resets_a_used_cache():
 
 
 # ----------------------------------------------------- template and init
-@pytest.mark.parametrize("arch,n_layers", [(a, None) for a in SERVED]
-                         + [(JAMBA, 8)])
+@pytest.mark.parametrize("arch,n_layers", [(a, None) for a in list_archs()]
+                         + [(JAMBA, 8), (JAMBA, 2)])
 def test_param_count_matches_config(arch, n_layers):
     """The full config, counted from the template without allocating."""
     over = {} if n_layers is None else {"n_layers": n_layers}
@@ -358,6 +362,18 @@ def test_init_params_follows_the_reference_init_kinds():
     again = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(again["embed"]["tok"], tok)
 
+    # RWKV's "small" kind: 0.006, as the JAX package draws it
+    cfg, jcfg = _cfgs("rwkv6-1.6b", d_model=256)
+    got = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    want = jax.tree.map(np.asarray, JT.init_params(jcfg, 0))
+    mixer, jmixer = got["dec"]["sub0"]["mixer"], want["dec"]["sub0"]["mixer"]
+    for name in ("mix_a", "mix_b", "dec_a", "dec_b", "u", "wr", "wo"):
+        std, jstd = float(mixer[name].std()), float(jmixer[name].std())
+        assert abs(std - jstd) < 0.1 * jstd, (name, std, jstd)
+    assert abs(float(mixer["mix_a"].std()) - 0.006) < 0.1 * 0.006
+    for name in ("mu_x", "mu", "w0", "ln_x"):           # zeros and ones
+        _close(mixer[name], jmixer[name], 0)
+
 
 def test_params_from_reference_rejects_a_wrong_tree():
     cfg, jcfg = _cfgs(JAMBA)
@@ -370,15 +386,53 @@ def test_params_from_reference_rejects_a_wrong_tree():
         T.params_from_reference(cfg, tree, device="cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_SERVED))
-def test_families_not_in_this_slice_raise(arch):
-    cfg = get_smoke_config(arch)
-    for fn in (lambda: T.Transformer(cfg, device="cpu"),
-               lambda: T.param_template(cfg),
-               lambda: T.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{NOT_SERVED[arch]}.*ROADMAP A12"):
-            fn()
+def _leaves(tree, path=""):
+    """{path: leaf} of a nested dict whose leaves are P specs or arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{path}/{k}"))
+        else:
+            out[f"{path}/{k}"] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_template_init_and_cache_match_reference(arch):
+    """Every family: the parameter template (shapes, axes, init kinds) is
+    the JAX package's; init_params realises it in the config's dtype with
+    the deterministic kinds equal to JAX's; init_cache (with s_enc for the
+    encoder-decoder) has JAX's leaves, shapes and dtypes; and a model
+    builds from the JAX package's parameters."""
+    cfg, jcfg = _cfgs(arch)
+    want = _leaves(JT.param_template(jcfg))
+    got = _leaves(T.param_template(cfg))
+    assert got.keys() == want.keys()
+    for k, p in got.items():
+        assert tuple(p) == tuple(want[k]), k
+
+    params = _leaves(T.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu"))
+    jtree = jax.tree.map(np.asarray, JT.init_params(jcfg, 0))
+    jparams = _leaves(jtree)
+    assert params.keys() == jparams.keys()
+    for k, t in params.items():
+        assert tuple(t.shape) == jparams[k].shape and t.dtype == \
+            torch.float32, k
+        if got[k].init in ("zeros", "ones", "alog", "dtbias"):
+            _close(t, jparams[k], 1e-7)
+
+    s_enc = 5 if cfg.encoder_layers else None
+    cache = _leaves(T.init_cache(cfg, 2, 8, "cpu", s_enc=s_enc))
+    jcache = _leaves(JT.init_cache(jcfg, 2, 8, s_enc))
+    assert cache.keys() == jcache.keys()
+    for k, t in cache.items():
+        assert tuple(t.shape) == jcache[k].shape, k
+        assert str(t.dtype).split(".")[-1] == str(jcache[k].dtype), k
+        assert not t.any()
+    model = T.params_from_reference(cfg, jtree, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        math.prod(p.shape) for p in got.values())
 
 
 def test_model_and_cache_default_to_cuda_and_raise_without_it():
