@@ -78,6 +78,22 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    logit finite and every token below the vocabulary; RWKV's 64-token
    chunk held to 64 single-token steps at full width; and each family's
    smoke-size model on the card held to the CPU;
+10. trains on the card, in the order (b), (c), (a), (d): (a) the reverse
+   scan's kernel (``ssm_scan_bwd``) held to its plain loop at ragged
+   shapes and at the training shape [2, 2,048, 262,144], and timed there;
+   (b) the smoke Jamba (with experts), MoE and dense configs in f32 on
+   the card against the CPU: ``loss_fn``, every gradient, and every
+   parameter after one ``build_train_step`` step; (c) phase 6's Jamba at
+   published widths trained in bf16 with Adafactor: a gradient pass
+   (every gradient finite, every Mamba layer's in_proj, x_dbc and A_log
+   gradient non-zero), 3 steps on 2 x 2,048 tokens, each with the launch
+   counters zeroed (ssm_scan 14 and ssm_scan_bwd 7 a step), then a
+   profiled 4th: step seconds, tokens/s, model-FLOP utilisation, peak
+   memory, busy share and the scans' device time; (d) the ``Trainer`` on
+   examples/train_lm.py's ``--full`` config: 24 steps, a checkpoint every
+   6, a failure at step 15, every logged loss within 1e-5 relative of an
+   uninterrupted run's, and a bf16 tree through ``CheckpointManager``
+   bit for bit;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -91,6 +107,7 @@ imports JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -142,15 +159,17 @@ def device_ms(fn, reps: int, kernel: str, setup=None):
     ``reps`` runs, from ``torch.profiler`` (CUPTI): the kernel's own time,
     without the host's launch work that CUDA events around a call also
     hold when the host is slower than the kernel.  A trace that caught no
-    kernel is logged and taken once more; ``trace`` says which reading
-    the time is (1 or 2), and the time is None when both saw none."""
+    kernel is logged and taken once more, tracing the host too; ``trace``
+    says which reading the time is (1 or 2), and the time is None when
+    both saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn() if setup is None else (setup(), fn())          # warm-up
-    for trace in (1, 2):
+    for trace, acts in ((1, [ProfilerActivity.CUDA]),
+                        (2, [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             for _ in range(reps):
                 if setup is not None:
                     setup()
@@ -162,8 +181,12 @@ def device_ms(fn, reps: int, kernel: str, setup=None):
         if count:
             return (sum(e.self_device_time_total for e in rows) / 1e3
                     / count, trace)
+        seen = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
         log(f"device_ms: trace {trace} of {reps} {kernel} runs caught no "
-            "kernel")
+            f"such kernel; it saw {len(seen)} device kernels: "
+            + "; ".join(f"{e.count} x {e.key[:60]}" for e in seen[:3]))
     return None, None
 
 
@@ -404,11 +427,11 @@ def phase_kernels(dev) -> dict:
 def wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.segdeg.ops import banded_segsum
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_bwd
     from repro_torch.kernels.wave_peel.ops import wave_peel
 
     return {"wave_peel": wave_peel, "segdeg": banded_segsum,
-            "ssm_scan": ssm_scan}
+            "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd}
 
 
 def run_path(fn):
@@ -518,6 +541,7 @@ def phase_main(dev) -> dict:
         expect("serial", kernel, lambda n: n == 0, "0")
     for path in by_path:
         expect(path, "ssm_scan", lambda n: n == 0, "0")
+        expect(path, "ssm_scan_bwd", lambda n: n == 0, "0")
     iters = comp[0].stats.peel_iters
     expect("composite_batch", "segdeg", lambda n: n >= 2 * iters,
            f">= 2 x {iters} peel iterations")
@@ -540,13 +564,15 @@ def phase_main(dev) -> dict:
 
 
 # ------------------------------------------ phase 4: where the time goes
-def profiled(fn, what: str, top: int = 6, cpu_ops: bool = True):
+def profiled(fn, what: str, top: int = 6, cpu_ops: bool = True,
+             kernels: dict = None):
     """Run ``fn`` once under ``torch.profiler`` and log the device's busy
     share of its wall time and the kernels that took the most of it.
     Returns the busy share (0-1), None when the profiler saw no device
     time.  ``cpu_ops=False`` traces the device alone: a path of tens of
     thousands of small operators then takes seconds to trace, not a
-    minute, and the host runs at nearly its untraced pace."""
+    minute, and the host runs at nearly its untraced pace.  ``kernels``,
+    a dict, receives {kernel: (device ms, count)} of every kernel seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -565,6 +591,8 @@ def profiled(fn, what: str, top: int = 6, cpu_ops: bool = True):
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    if kernels is not None:
+        kernels.update({name: (ms, count) for name, ms, count in rows})
     if not rows:
         log(f"profile of {what}: the profiler saw no device time "
             "(not measured)")
@@ -871,7 +899,8 @@ def phase_lm(dev) -> dict:
     for path, want in (("jamba_prefill", n_mamba),
                        ("jamba_decode", n_mamba * n_dec)):
         got = by_path[path]
-        check(got == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want},
+        check(got == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want,
+                      "ssm_scan_bwd": 0},
               f"{path}: launches {got}, want ssm_scan {want} and no other")
     log(f"jamba prefill: {b} x {s} tokens into a {s_max}-token cache in "
         f"{pre_s:.3f}s ({b * s / pre_s:.0f} tokens/s)")
@@ -1043,7 +1072,7 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
 
     def expect(path, launches, svc=None, *, peel=True):
         """A healthy path: its kernel ran (or, cached, did not), segdeg
-        and ssm_scan never, and the service holds no ladder."""
+        and the scans never, and the service holds no ladder."""
         by_path[path] = launches
         check(svc is None or not ladders(svc), f"{path}: a ladder")
         if not on_card:
@@ -1052,7 +1081,8 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
               f"{path}: wave_peel launched {launches['wave_peel']} times")
         check(launches["segdeg"] == 0,
               f"{path}: segdeg launched {launches['segdeg']} times")
-        check(launches["ssm_scan"] == 0, f"{path}: ssm_scan launched")
+        check(launches["ssm_scan"] == launches["ssm_scan_bwd"] == 0,
+              f"{path}: a scan launched")
 
     def pool_report(svc, what: str, wall: float, tickets) -> None:
         occ = [p["occupancy"] for p in svc.pool_log if p["device_steps"]]
@@ -1263,8 +1293,8 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
             orc = sum(lad.oracle_calls for lad in ladders(xsvc))
             calls = ev[0]["call"]
             if on_card:
-                check(n["segdeg"] == 0 and n["ssm_scan"] == 0,
-                      f"{name}: launches {n}")
+                check(n["segdeg"] == n["ssm_scan"] == n["ssm_scan_bwd"]
+                      == 0, f"{name}: launches {n}")
                 check(n["wave_peel"] == calls - (1 if plan.fail_at else 0),
                       f"{name}: {n['wave_peel']} wave_peel launches for "
                       f"{calls} calls")
@@ -1612,7 +1642,8 @@ def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
                                n_mamba * n_dec)):
             by_path[path] = n
             if on_card:
-                check(n == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want},
+                check(n == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want,
+                            "ssm_scan_bwd": 0},
                       f"{path}: launches {n}, want ssm_scan {want} and no "
                       "other")
         if name == "rwkv6":
@@ -1644,6 +1675,355 @@ def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
         if on_card:
             torch.cuda.empty_cache()
     log("families: " + json.dumps(summary))
+    return {"by_path": by_path}
+
+
+# ------------------------------------------- phase 10: training on the card
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
+# denominator of model-FLOP utilisation
+BF16_PEAK_FLOPS = 989e12
+TRAIN_SMOKE = (JAMBA, "granite-moe-1b-a400m", "qwen2-7b")
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+
+
+def hold_scan_bwd(la, states, s0, g, what: str, reps: int = 0,
+                  plain_reps: int = 0) -> dict:
+    """The reverse scan's kernel against its plain loop on the card at one
+    shape: each output within rtol=1e-5 and atol=1e-5 x min(1, max|want|)
+    (the model tests' scaling); with ``reps``, both timed beside the
+    kernel's byte bound."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_ref
+
+    got = ssm_scan_bwd(la, states, s0, g)
+    want = ssm_scan_bwd_ref(la, states, s0, g)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, x, w in zip(("dlog_a", "dbx", "ds0"), got, want):
+        e = float((x - w).abs().max())
+        scale = min(1.0, float(w.abs().max()))
+        check(torch.allclose(x, w, rtol=1e-5, atol=1e-5 * scale),
+              f"ssm_scan_bwd at {what}: {name} max |diff| {e}")
+        err = max(err, e)
+    del got, want
+    if not reps:
+        log(f"ssm_scan_bwd at {what}: within rtol=1e-5 (atol scaled) of "
+            f"the plain loop (max |diff| {err:.3g})")
+        return {"max_abs_err": err}
+    ms = time_ms(lambda: ssm_scan_bwd(la, states, s0, g), reps)
+    dev_ms, trace = device_ms(lambda: ssm_scan_bwd(la, states, s0, g), reps,
+                              "ssm_scan_bwd_kernel")
+    plain_ms = time_ms(lambda: ssm_scan_bwd_ref(la, states, s0, g),
+                       plain_reps)
+    nb, ns, nf = la.shape
+    # reads log_a, states, g (and s0) once, writes dlog_a, dbx (and ds0)
+    # once; an exp, three multiplies and an add per element
+    bound_ms, bound_by = bound(4 * (5 * nb * ns * nf + 2 * nb * nf),
+                               5 * nb * ns * nf, F32_OPS_PER_S)
+    log(f"ssm_scan_bwd at {what}: within rtol=1e-5 (atol scaled) of the "
+        f"plain loop (max |diff| {err:.3g}); {ms:.4f} ms a call (device "
+        f"time {fmt_ms(dev_ms)}), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_trace": trace, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_train_kernel(dev) -> dict:
+    """10a: the reverse scan's kernel held to its plain loop at ragged
+    shapes (F not a multiple of 256, S = 1 and S = 3, s0 != 0) and at the
+    training shape [2, 2,048, 262,144] (s0 = 0, as the model starts),
+    on states the forward kernel computed; timed at the training shape."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import scan_forward
+
+    gen = torch.Generator(dev).manual_seed(23)
+
+    def inputs(b, s, f, s0_zero):
+        la = -2.0 * torch.rand((b, s, f), generator=gen, device=dev)
+        bx = torch.randn((b, s, f), generator=gen, device=dev)
+        s0 = (torch.zeros((b, f), device=dev) if s0_zero else
+              torch.randn((b, f), generator=gen, device=dev))
+        g = torch.randn((b, s, f), generator=gen, device=dev)
+        return la, scan_forward(la, bx, s0), s0, g
+
+    err = 0.0
+    for b, s, f in ((2, 1, 1_000), (2, 3, 4_099), (3, 37, 513)):
+        err = max(err, hold_scan_bwd(*inputs(b, s, f, False),
+                                     f"[{b}, {s}, {f}], s0 != 0")
+                  ["max_abs_err"])
+    at_train = hold_scan_bwd(*inputs(2, 2_048, 262_144, True),
+                             "the training shape [2, 2048, 262144]", 10, 2)
+    torch.cuda.empty_cache()
+    return {"name": "ssm_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:67",
+            "note": "the adjoint of ssm_scan_pallas; the TPU package "
+                    "differentiates a plain chunked scan through XLA",
+            **at_train, "max_abs_err": max(err, at_train["max_abs_err"]),
+            "library_ms": None}
+
+
+def _named_grads(model, batch):
+    """(loss, {name: gradient}) of ``loss_fn`` over every parameter."""
+    import torch
+    from repro_torch.models.transformer import loss_fn
+
+    model.requires_grad_(True)
+    named = list(model.named_parameters())
+    loss, _ = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True)
+    return loss.detach(), {n: (torch.zeros_like(p) if g is None else g)
+                           for (n, p), g in zip(named, grads)}
+
+
+def _train_batch(cfg, b, s, seed, step, dev) -> dict:
+    import torch
+    from repro_torch.data import SyntheticLMData
+
+    data = SyntheticLMData(vocab=cfg.vocab, batch=b, seq=s, seed=seed,
+                           input_mode=cfg.input_mode, d_model=cfg.d_model,
+                           encoder=cfg.encoder_layers > 0,
+                           mrope=cfg.pos == "mrope")
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch_at(step).items()}
+
+
+def phase_train_smoke(dev) -> dict:
+    """10b: the smoke Jamba (with experts), MoE and dense configs in f32
+    with the same weights on the card and on the CPU: ``loss_fn`` and
+    every gradient within rtol=1e-4 (atol 1e-4 x the leaf's scale), then
+    one ``build_train_step`` step and every parameter (Adafactor at the
+    same tolerance; AdamW, whose first steps move a parameter by about lr
+    whatever |g|, to rtol=1e-4 and atol 5% of lr, as
+    tests/test_torch_train_step.py holds it to the JAX package)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.transformer import Transformer, init_params
+
+    by_path = {}
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        runs = []
+        for where in ("cpu", dev):
+            def run():
+                # the same seeded weights, drawn anew: a model on the CPU
+                # holds (and trains) the very tensors it is given
+                params = init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+                model = Transformer(cfg, params, device=where)
+                batch = _train_batch(cfg, 2, 16, 1, 0, where)
+                loss, grads = _named_grads(model, batch)
+                step, opt = build_train_step(cfg)
+                state = opt.init(model.params.tree())
+                state, m = step(model, state, batch)
+                return (loss.cpu(), {k: g.cpu() for k, g in grads.items()},
+                        float(m["loss"]), opt,
+                        {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+            out, _, n = run_path(run)
+            runs.append(out)
+        (lc, gc, sc, opt, pc), (lg, gg, sg, _, pg) = runs
+        n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+        want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 4 * n_mamba,
+                "ssm_scan_bwd": 2 * n_mamba}
+        check(dev.type != "cuda" or n == want,
+              f"{arch} smoke training: launches {n}, want {want}")
+        by_path[f"{arch}_smoke_train"] = n
+        check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-4)
+              and abs(sg - sc) <= 1e-4 * abs(sc),
+              f"{arch} smoke: loss card {float(lg)} / {sg}, CPU "
+              f"{float(lc)} / {sc}")
+        adamw = type(opt).__name__ == "AdamW"
+        worst = {"grad": 0.0, "param": 0.0}
+        for kind, got, ref in (("grad", gg, gc), ("param", pg, pc)):
+            for name, w in ref.items():
+                scale = min(1.0, float(w.abs().max()))
+                atol = 0.05 * opt.lr if kind == "param" and adamw else \
+                    1e-4 * scale
+                e = float((got[name] - w).abs().max())
+                check(torch.allclose(got[name], w, rtol=1e-4, atol=atol),
+                      f"{arch} smoke: {kind} {name} max |diff| {e}")
+                worst[kind] = max(worst[kind], e)
+        log(f"{arch} smoke training (f32, {len(gc)} parameters, "
+            f"{type(opt).__name__}): loss on the card {float(lg):.6f}, CPU "
+            f"{float(lc):.6f}; every gradient (max |diff| "
+            f"{worst['grad']:.3g}) and, after one train step, every "
+            f"parameter (max |diff| {worst['param']:.3g}) within tolerance "
+            f"of the CPU; launches {json.dumps(n)}")
+    return by_path
+
+
+def phase_train(dev) -> dict:
+    """10c: Jamba-1.5-Large at its published widths (8 layers, experts
+    removed; phase 6's model) trained on the card in bf16 with its config's
+    Adafactor: one gradient pass (every gradient finite, every Mamba
+    layer's in_proj, x_dbc and A_log gradient non-zero), then 3
+    ``build_train_step`` steps on ``SyntheticLMData`` batches of 2 x 2,048
+    tokens, each with the launch counters zeroed before it (with remat,
+    ssm_scan 2 and ssm_scan_bwd 1 per Mamba layer), then a 4th step under
+    the profiler."""
+    import re
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_config(JAMBA).scaled(n_layers=8, moe=None)
+    b, s = 2, 2_048
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    step, opt = build_train_step(cfg, n_micro=1, lr=3e-4)
+    batches = [_train_batch(cfg, b, s, 0, i, dev) for i in range(4)]
+    log(f"jamba training: {cfg.name}, 8 layers at published widths, "
+        f"experts removed, {cfg.dtype}, {n_params / 1e9:.3f} B parameters, "
+        f"{type(opt).__name__}(lr={opt.lr}); batches {b} x {s} tokens")
+
+    (loss0, grads), grad_s, n_grad = run_path(
+        lambda: _named_grads(model, batches[0]))
+    check(bool(torch.isfinite(loss0)), f"jamba gradient pass: loss {loss0}")
+    mamba = re.compile(
+        r"params\.dec\.sub(\d+)\.mixer\.(in_proj|x_dbc|A_log)$")
+    seen = 0
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"jamba: {name} gradient")
+        if mamba.search(name):
+            seen += 1
+            check(bool((g != 0).any()), f"jamba: {name} gradient is zero")
+    check(seen == 3 * n_mamba, f"jamba: {seen} Mamba gradients checked")
+    del grads
+    want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_mamba,
+            "ssm_scan_bwd": n_mamba}
+    on_card = dev.type == "cuda"
+    check(not on_card or n_grad == want,
+          f"jamba gradient pass: launches {n_grad}")
+    log(f"jamba gradient pass: loss {float(loss0):.4f}, every gradient "
+        f"finite, the {seen} in_proj, x_dbc and A_log gradients of the "
+        f"{n_mamba} Mamba layers non-zero; {grad_s:.2f}s; launches "
+        f"{json.dumps(n_grad)}")
+
+    state = opt.init(model.params.tree())
+    walls, total = [], {k: 0 for k in want}
+    for i in range(3):
+        (state, m), wall, n = run_path(
+            lambda i=i, st=state: step(model, st, batches[i]))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        check(not on_card or n == want,
+              f"jamba train step {i}: launches {n}, want {want}")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+              f"jamba train step {i}: loss {loss}, grad norm {gnorm}")
+        total = {k: total[k] + n[k] for k in total}
+        walls.append(wall)
+        log(f"jamba train step {i}: loss {loss:.4f}, grad norm "
+            f"{gnorm:.4f}, {wall:.3f}s")
+    kern = {}
+    busy = profiled(lambda: step(model, state, batches[3]),
+                    "a 4th jamba train step", top=10, cpu_ops=False,
+                    kernels=kern)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(walls[1:]) / len(walls[1:])
+    tokens = b * s
+    flops = 6.0 * n_params * tokens
+    scans = {k: tuple(map(sum, zip(*[v for n_, v in kern.items()
+                                     if k in n_])))
+             for k in ("ssm_scan_kernel", "ssm_scan_bwd_kernel")}
+    log(f"jamba training: steps {', '.join(f'{w:.3f}' for w in walls)} s; "
+        f"steady (steps 1-2) {steady:.3f} s a step, "
+        f"{tokens / steady:.0f} tokens/s; model-FLOP utilisation "
+        f"{100 * flops / steady / BF16_PEAK_FLOPS:.2f}% (6 x {n_params} "
+        f"parameters x {tokens} tokens = {flops:.4g} FLOP a step over the "
+        f"H100 SXM dense bf16 peak of 989 TFLOP/s, NVIDIA data sheet); "
+        f"peak memory {peak / 2**30:.2f} GiB; device busy "
+        + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+        + " of the profiled step; scan device time in it: "
+        + ", ".join(f"{k} {v[0]:.2f} ms over {v[1]} launches"
+                    if v else f"{k} not measured" for k, v in scans.items()))
+    del model, state, batches
+    torch.cuda.empty_cache()
+    # each scan's device time a launch inside the profiled step
+    per_launch = {name: v[0] / v[1] for name, v in
+                  (("ssm_scan", scans["ssm_scan_kernel"]),
+                   ("ssm_scan_bwd", scans["ssm_scan_bwd_kernel"])) if v}
+    return {"by_path": {"jamba_grad_pass": n_grad, "jamba_train": total},
+            "scan_ms_in_step": per_launch}
+
+
+def phase_trainer(dev) -> dict:
+    """10d: the Trainer's lifecycle on examples/train_lm.py's ``--full``
+    config (qwen2 family, 12 layers, d_model 768, f32, AdamW), batches of
+    8 x 512: 24 steps, a checkpoint every 6, a failure injected at step 15
+    (resumed from step 12); the loss falls, and every logged loss is within
+    1e-5 relative of an uninterrupted run's (CUDA's unordered
+    embedding-gradient adds may move the last bits); then a bf16 tree
+    through ``CheckpointManager`` comes back bit for bit."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.examples.train_lm import full_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime import FaultInjector, Trainer, TrainerConfig
+
+    cfg, b, s = full_config()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    runs, by_path = {}, {}
+    for name, fail in (("trainer_faulty", {15: "injected node loss"}),
+                       ("trainer_clean", {})):
+        tr = Trainer(cfg, SyntheticLMData(vocab=cfg.vocab, batch=b, seq=s,
+                                          seed=0),
+                     TrainerConfig(steps=24, ckpt_every=6,
+                                   ckpt_dir=str(TRAIN_DIR / name),
+                                   lr=3e-4),
+                     FaultInjector(fail_at=fail), device=dev)
+        out, wall, n = run_path(tr.run)
+        check(not any(n.values()), f"{name}: launches {n}")
+        by_path[name] = n
+        runs[name] = (tr, out)
+        log(f"{name}: {cfg.param_count() / 1e6:.1f} M parameters, {b} x "
+            f"{s} tokens a step: {out} in {wall:.1f}s; checkpoints "
+            f"{tr.ckpt.steps()}")
+    (tr, out), (clean, _) = runs["trainer_faulty"], runs["trainer_clean"]
+    seen = [m["step"] for m in tr.metrics]
+    check(out["restarts"] == 1 and seen == list(range(15))
+          + list(range(12, 24)), f"trainer: restarts {out['restarts']}, "
+          f"steps {seen}")
+    first, last = tr.metrics[0]["loss"], tr.metrics[-1]["loss"]
+    check(last < first, f"trainer: loss {first} -> {last}")
+    want = {m["step"]: m["loss"] for m in clean.metrics}
+    worst = max(abs(m["loss"] - want[m["step"]]) / abs(want[m["step"]])
+                for m in tr.metrics)
+    check(worst <= 1e-5, f"trainer: losses {worst:.3g} relative from the "
+          "uninterrupted run's")
+    log(f"trainer: loss {first:.4f} -> {last:.4f}; restarts 1, steps 12-14 "
+        f"replayed from the step-12 checkpoint; every logged loss within "
+        f"{worst:.3g} relative of the uninterrupted run's")
+
+    bcfg = get_smoke_config(JAMBA).scaled(dtype="bfloat16")
+    tree = {"params": init_params(bcfg, torch.Generator(dev).manual_seed(3),
+                                  dev)}
+    mgr = CheckpointManager(str(TRAIN_DIR / "bf16"))
+    mgr.save(1, tree)
+    back = mgr.restore(tree, device=dev)
+
+    def bits_equal(x, y):
+        if isinstance(x, dict):
+            return all(bits_equal(x[k], y[k]) for k in x)
+        return x.dtype == y.dtype == torch.bfloat16 and torch.equal(
+            x.view(torch.int16), y.view(torch.int16))
+
+    check(bits_equal(tree, back), "bf16 checkpoint roundtrip")
+    log("bf16 tree (the smoke Jamba's parameters) saved and restored "
+        "through CheckpointManager: bit for bit")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return {"by_path": by_path}
 
 
@@ -1713,8 +2093,22 @@ def main() -> int:
     fam = phase_families(dev)
     log(f"phase 9 took {time.perf_counter() - t9:.1f}s")
     done("phase 9 (LM families)")
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    train_smoke = phase_train_smoke(dev)
+    trained = phase_train(dev)
+    # after 10c: in two runs with 10a first, right after phase 9's traces,
+    # 10a's own traces recorded no device kernel at all
+    kernels.append(phase_train_kernel(dev))
+    lifecycle = phase_trainer(dev)
+    for k in kernels:
+        if k["name"] in trained["scan_ms_in_step"]:
+            k["train_step_device_ms"] = trained["scan_ms_in_step"][k["name"]]
+    log(f"phase 10 took {time.perf_counter() - t10:.1f}s")
+    done("phase 10 (training)")
     by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
-               **base["by_path"], **fam["by_path"]}
+               **base["by_path"], **fam["by_path"], **train_smoke,
+               **trained["by_path"], **lifecycle["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

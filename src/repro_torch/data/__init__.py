@@ -1,4 +1,5 @@
-"""Request workloads for the serving launcher (PyTorch port of
-``repro.data``; only the TCQ request stream is ported)."""
+"""Data pipelines (PyTorch port of ``repro.data``): the step-indexed
+synthetic LM batches and the TCQ request stream."""
 
-from repro_torch.data.pipeline import TCQRequestStream  # noqa: F401
+from repro_torch.data.pipeline import (SyntheticLMData,  # noqa: F401
+                                       TCQRequestStream)

@@ -1,6 +1,11 @@
-"""Query workloads for the TCQ serving launcher (PyTorch port of
-``repro.data.pipeline::TCQRequestStream``; host-side numpy with the same
-seeded draws, so both packages generate the same request tapes).
+"""Data pipelines (PyTorch port of ``repro.data.pipeline``; host-side numpy
+with the same seeded draws, so both packages generate the same batches and
+request tapes).
+
+``SyntheticLMData.batch_at(step)`` is a pure function of (seed, step,
+host_id): after a failure and restart, resuming at step k replays exactly
+the batch the crashed run would have seen (no iterator state to
+checkpoint).  Its batches are numpy; the trainer moves them to its device.
 
 ``TCQRequestStream`` generates temporal k-core query workloads: windows
 with a controllable span over a graph's time range, optionally tagged
@@ -10,8 +15,45 @@ with open-loop arrival times.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticLMData:
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+    host_id: int = 0
+    n_hosts: int = 1
+    input_mode: str = "tokens"       # tokens | embeds
+    d_model: int = 0                 # for embeds mode
+    encoder: bool = False
+    mrope: bool = False
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.host_id]))
+        b = self.batch // self.n_hosts
+        out: Dict[str, np.ndarray] = {}
+        toks = rng.integers(0, self.vocab, (b, self.seq + 1),
+                            dtype=np.int64).astype(np.int32)
+        if self.input_mode == "embeds":
+            out["embeds"] = rng.normal(
+                0, 0.02, (b, self.seq, self.d_model)).astype(np.float32)
+        else:
+            out["tokens"] = toks[:, :-1]
+        out["labels"] = toks[:, 1:]
+        if self.encoder:
+            out["enc_embeds"] = rng.normal(
+                0, 0.02, (b, self.seq, self.d_model)).astype(np.float32)
+        if self.mrope:
+            pos = np.broadcast_to(np.arange(self.seq, dtype=np.int32),
+                                  (3, b, self.seq)).copy()
+            out["positions"] = pos
+        return out
 
 
 @dataclasses.dataclass

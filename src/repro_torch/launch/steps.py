@@ -1,17 +1,23 @@
-"""Serving steps of the LM substrate: prefill a cache, then decode greedily.
+"""Steps of the LM substrate: train (gradient accumulation + optimizer),
+prefill a cache, then decode greedily.
 
 PyTorch counterparts of the inner ``step`` functions of
-``repro.launch.steps.build_prefill_step`` and ``build_serve_step``, on one
-device and without a mesh.  Both run on the model's device (CUDA unless
-the model was made elsewhere) under ``torch.inference_mode()`` and update
-the cache in place, where the JAX steps return a new (donated) one.  The
-batches are the JAX package's (``repro.launch.shapes.batch_specs``):
-"tokens" [B, S], or "embeds" [B, S, d] for an ``input_mode="embeds"``
-model; "enc_embeds" [B, S_enc, d] at prefill for an encoder-decoder
-model; "positions" [3, B, S] for M-RoPE.  The train step waits for the
-training slice (ROADMAP A12).
+``repro.launch.steps.build_train_step``, ``build_prefill_step`` and
+``build_serve_step``, on one device and without a mesh.  They run on the
+model's device (CUDA unless the model was made elsewhere).  The train step
+updates the model's parameters in place, as the serving steps (under
+``torch.inference_mode()``) update the cache in place, where the JAX steps
+return new (donated) trees.  The batches are the JAX package's
+(``repro.launch.shapes.batch_specs``): "tokens" [B, S], or "embeds"
+[B, S, d] for an ``input_mode="embeds"`` model; "enc_embeds" [B, S_enc, d]
+for an encoder-decoder model; "positions" [3, B, S] for M-RoPE; "labels"
+[B, S] to train.
 
     model = Transformer(cfg)                      # on CUDA by default
+    step, opt = build_train_step(cfg)
+    opt_state = opt.init(model.params.tree())
+    opt_state, metrics = step(model, opt_state, batch)
+
     cache = init_cache(cfg, batch=2, s_max=4096)
     logits, cache = prefill_step(model, {"tokens": prompt}, cache)
     tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -24,7 +30,90 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, loss_fn
+from repro_torch.optim import make_optimizer
+
+
+def _split_micro(batch: dict, n_micro: int) -> list:
+    """``n_micro`` microbatches of ``batch``, split along the batch axis
+    as ``repro.launch.steps._split_micro`` splits it (M-RoPE positions
+    [3, B, S] along their second axis; a scalar goes to every one)."""
+    def split(x):
+        if x.dim() == 0:
+            return x.expand(n_micro)
+        if x.shape[0] == 3 and x.dim() == 3:  # mrope positions (3,B,S)
+            return x.reshape(3, n_micro, -1, *x.shape[2:]).transpose(0, 1)
+        return x.reshape(n_micro, -1, *x.shape[1:])
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
+
+
+def _leaves(tree: dict) -> list:
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _like(tree: dict, leaves) -> dict:
+    """A nested dict shaped like ``tree`` holding ``leaves`` in order."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in t.items()}
+
+    return build(tree)
+
+
+def build_train_step(cfg, n_micro: int = 1, lr: float = 3e-4):
+    """Returns (step, optimizer): the config's optimizer
+    (``optim.make_optimizer``) and
+
+        step(model, opt_state, batch) -> (opt_state, {"loss", "grad_norm"})
+
+    which takes the gradient of ``loss_fn`` over ``n_micro`` microbatches
+    (summed in float32 and divided by ``n_micro``; with one, in the
+    parameters' dtype), its float32 global norm, and adds the optimizer's
+    update to every parameter in place (``p + u.to(p.dtype)``).  The
+    parameters are made trainable (``requires_grad_``) on first use."""
+    opt = make_optimizer(cfg, lr=lr)
+
+    def step(model: Transformer, opt_state: dict, batch: dict):
+        model.requires_grad_(True)
+        params = model.params.tree()
+        leaves = _leaves(params)
+        if n_micro > 1:
+            gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for p in leaves]
+            lsum = 0.0
+            for mb in _split_micro(batch, n_micro):
+                loss, _ = loss_fn(model, mb)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                for acc, g in zip(gsum, grads):
+                    if g is not None:
+                        acc.add_(g)
+                lsum = lsum + loss.detach()
+                del grads, loss
+            grads = [g / n_micro for g in gsum]
+            del gsum
+            loss = lsum / n_micro
+        else:
+            loss, _ = loss_fn(model, batch)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))]
+            loss = loss.detach()
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                                   for g in grads))
+            updates, opt_state = opt.update(_like(params, grads), opt_state,
+                                            params)
+            del grads
+            for p, u in zip(leaves, _leaves(updates)):
+                p.add_(u.to(p.dtype))
+        return opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return step, opt
 
 
 @torch.inference_mode()

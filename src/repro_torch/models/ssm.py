@@ -4,7 +4,8 @@ The diagonal recurrence
     s_t = exp(dt_t A) s_{t-1} + dt_t B_t x_t
 over the [d_inner, d_state] state is one call of
 ``kernels.ssm_scan.ssm_scan``: the hand-written CUDA kernel on the card,
-the plain loop on the CPU.  The JAX package's chunked lowerings
+the plain loop on the CPU, and in the backward pass the reverse scan
+(its CUDA kernel or its plain loop).  The JAX package's chunked lowerings
 (``cfg.mamba_scan``, ``cfg.mamba_chunk``) compute the same states and are
 not ported.  The conv1d frontend is a causal depthwise convolution with a
 (d_conv-1)-token carry for decode.

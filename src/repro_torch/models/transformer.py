@@ -12,15 +12,18 @@ forward pass (PyTorch counterpart of ``repro.models.transformer``).
     decoder's cross KV) are dicts of tensors stacked the same way, and are
     updated in place.
 
-Modes: "train" (full causal, no cache), "prefill" (fills a cache from
-position 0), "decode" (tokens or embeddings against a cache at
+Modes: "train" (full causal, no cache; each sub-layer under
+``torch.utils.checkpoint``, the JAX package's remat), "prefill" (fills a
+cache from position 0), "decode" (tokens or embeddings against a cache at
 ``cache_index``).
 
-Every family of the JAX package is served: dense, MoE (with the shared
-expert), Mamba hybrids with their experts, RWKV6, the whisper
-encoder-decoder and ``input_mode="embeds"`` backbones.  Sharding
-(``param_pspecs``, ``cache_pspecs``) and training (``loss_fn``) are not
-ported yet (ROADMAP A11, A12).
+Every family of the JAX package is served and trained: dense, MoE (with
+the shared expert), Mamba hybrids with their experts, RWKV6, the whisper
+encoder-decoder and ``input_mode="embeds"`` backbones.  ``loss_fn`` is the
+causal LM loss the train step (``launch/steps.py::build_train_step``)
+differentiates; the parameters are frozen until ``requires_grad_(True)``,
+which the train step sets.  Sharding (``param_pspecs``, ``cache_pspecs``)
+waits for ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.otcd import resolve_device
 from repro_torch.models.attention import attention
@@ -242,9 +246,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module tree: a dict becomes a child
-    ``ParamTree``, a tensor a frozen ``nn.Parameter``; ``tree[key]`` reads
-    either, and ``select(i)`` gives the plain nested dict of the leaves'
-    views ``leaf[i]`` (one layer group)."""
+    ``ParamTree``, a tensor an ``nn.Parameter`` (frozen until
+    ``requires_grad_(True)``); ``tree[key]`` reads either, ``select(i)``
+    gives the plain nested dict of the leaves' views ``leaf[i]`` (one
+    layer group) and ``tree()`` the nested dict of the parameters
+    themselves (what the optimizers and checkpoints walk)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -264,6 +270,11 @@ class ParamTree(nn.Module):
     def select(self, index) -> Dict[str, Any]:
         out = {k: m.select(index) for k, m in self._modules.items()}
         out.update({k: p[index] for k, p in self._parameters.items()})
+        return out
+
+    def tree(self) -> Dict[str, Any]:
+        out = {k: m.tree() for k, m in self._modules.items()}
+        out.update(self._parameters)
         return out
 
 
@@ -295,14 +306,17 @@ class Transformer(nn.Module):
         aux is the MoE load-balancing loss summed over layers (f32
         scalar); the cache given, updated in place, or None without one.
         ``mode`` names the JAX mode: "decode" reads the cross KV from the
-        cache; otherwise the cache alone decides (no remat)."""
+        cache; "train" recomputes each sub-layer in the backward pass,
+        which changes no number; otherwise the cache alone decides."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg, params = self.cfg, self.params
         groups, specs = _groups(cfg)
+        remat = mode == "train"
         enc_out = None
         if cfg.encoder_layers and "enc_embeds" in batch:
-            enc_out = run_encoder(cfg, params, batch["enc_embeds"])
+            enc_out = run_encoder(cfg, params, batch["enc_embeds"],
+                                  remat=remat)
         if cfg.input_mode == "embeds" and "embeds" in batch:
             b, s = batch["embeds"].shape[:2]
             dev = batch["embeds"].device
@@ -317,7 +331,7 @@ class Transformer(nn.Module):
         x, aux = _stack_forward(
             cfg, params["dec"], x, positions, groups=groups, specs=specs,
             causal=True, cache=cache, cache_index=cache_index,
-            enc_out=enc_out, decode=(mode == "decode"))
+            enc_out=enc_out, decode=(mode == "decode"), remat=remat)
         x = norm(x, params["final_norm"], cfg.norm)
         return x, aux, cache
 
@@ -334,6 +348,26 @@ class Transformer(nn.Module):
                                device=logits.device) >= cfg.vocab
             logits = logits.masked_fill(pad, -1e30)
         return logits
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """Causal LM loss of ``model`` on ``batch`` (its forward's inputs plus
+    "labels" [B, S]; labels < 0 are masked): the mean token NLL from an
+    f32 logsumexp, plus 0.01 x the MoE load-balancing aux.  Returns (loss,
+    {"nll", "aux", "tokens"}), f32 scalars, as ``repro.models.transformer
+    .loss_fn``."""
+    hidden, aux, _ = model(batch, mode="train")
+    logits = model.logits_from_hidden(hidden).to(torch.float32)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).to(torch.int64)
+                        [..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom + 0.01 * aux
+    return loss, {"nll": nll.sum() / denom, "aux": aux,
+                  "tokens": mask.sum()}
 
 
 def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
@@ -494,9 +528,14 @@ def _run_sublayer(cfg, spec: LayerSpec, p, x, positions, *, causal, cache,
 
 def _stack_forward(cfg, stack_params: ParamTree, x, positions, *, groups,
                    specs, causal, cache=None, cache_index=None,
-                   enc_out=None, decode=False):
+                   enc_out=None, decode=False, remat=False):
     """Loop over layer groups and their sub-layers; ``cache`` (stacked
-    over groups) is updated in place.  Returns (x, aux)."""
+    over groups) is updated in place.  ``remat`` runs each sub-layer under
+    ``torch.utils.checkpoint``: only its input is kept for the backward
+    pass, which runs it again.  (The JAX package remats each layer group;
+    one sub-layer at a time is what lets a full-width Mamba layer, whose
+    scan keeps several [B, S, d_inner * d_state] float32 tensors, train on
+    one card.)  Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(groups):
         gp = stack_params.select(g)
@@ -504,16 +543,20 @@ def _stack_forward(cfg, stack_params: ParamTree, x, positions, *, groups,
             sub_c = None
             if cache is not None:
                 sub_c = {k: t[g] for k, t in cache[f"sub{i}"].items()}
-            x, a = _run_sublayer(cfg, spec, gp[f"sub{i}"], x, positions,
-                                 causal=causal, cache=sub_c,
-                                 cache_index=cache_index, enc_out=enc_out,
-                                 decode=decode)
+            kw = dict(causal=causal, cache=sub_c, cache_index=cache_index,
+                      enc_out=enc_out, decode=decode)
+            if remat:
+                x, a = checkpoint(_run_sublayer, cfg, spec, gp[f"sub{i}"],
+                                  x, positions, use_reentrant=False, **kw)
+            else:
+                x, a = _run_sublayer(cfg, spec, gp[f"sub{i}"], x, positions,
+                                     **kw)
             if a is not None:
                 aux = aux + a
     return x, aux
 
 
-def run_encoder(cfg, params, enc_embeds):
+def run_encoder(cfg, params, enc_embeds, *, remat: bool = False):
     """The bidirectional encoder stack over ``enc_embeds`` [B,S_enc,d],
     then ``enc_norm`` (no positional term, as in the JAX package)."""
     b, s, _ = enc_embeds.shape
@@ -521,7 +564,7 @@ def run_encoder(cfg, params, enc_embeds):
                        device=enc_embeds.device)[None].expand(b, s)
     x, _ = _stack_forward(cfg, params["enc"], enc_embeds.to(_dtype(cfg)),
                           pos, groups=cfg.encoder_layers, specs=[ENC_SPEC],
-                          causal=False)
+                          causal=False, remat=remat)
     return norm(x, params["enc_norm"], cfg.norm)
 
 

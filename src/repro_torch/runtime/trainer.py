@@ -1,0 +1,166 @@
+"""Fault-tolerant training driver: checkpoint/restart, failure injection,
+straggler watchdog.
+
+PyTorch port of ``repro.runtime.trainer`` on one device, where the JAX
+trainer takes a mesh.  The contract is the JAX package's:
+
+  * every step is restart-exact: parameters and optimizer state come from
+    the checkpoint, data from the stateless step-indexed pipeline;
+  * failures (injected here) bounce the driver loop, which restores the
+    last complete checkpoint and replays, within a restart budget;
+  * the straggler watchdog flags steps slower than ``straggler_factor`` x
+    the trailing median.
+
+Elastic re-meshing (``resize``) needs a mesh and waits for ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import statistics
+import tempfile
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.otcd import resolve_device
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.transformer import Transformer
+
+
+class InjectedFault(RuntimeError):
+    pass
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    """Raises at configured steps (once each) — simulated node failures."""
+    fail_at: Dict[int, str] = dataclasses.field(default_factory=dict)
+    delay_at: Dict[int, float] = dataclasses.field(default_factory=dict)
+    _fired: set = dataclasses.field(default_factory=set)
+
+    def check(self, step: int) -> None:
+        if step in self.delay_at:
+            time.sleep(self.delay_at[step])
+        if step in self.fail_at and step not in self._fired:
+            self._fired.add(step)
+            raise InjectedFault(f"step {step}: {self.fail_at[step]}")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 10
+    ckpt_every: int = 5
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    keep: int = 3
+    max_restarts: int = 3
+    straggler_factor: float = 3.0
+    lr: float = 3e-4
+
+
+class Trainer:
+    """Trains ``model_cfg`` on ``data`` (``SyntheticLMData``) on one device:
+    CUDA unless ``device`` names another (and raises where there is none).
+    The model starts from seed 0 on the device, or from the latest
+    checkpoint in ``tcfg.ckpt_dir``."""
+
+    def __init__(self, model_cfg, data, tcfg: TrainerConfig,
+                 injector: Optional[FaultInjector] = None, *, device=None):
+        self.model_cfg = model_cfg
+        self.tcfg = tcfg
+        self.data = data
+        self.device = resolve_device(device, "Trainer")
+        self.injector = injector or FaultInjector()
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self.metrics: List[Dict[str, Any]] = []
+        self.restarts = 0
+        self.straggler_flags = 0
+        self.model: Optional[Transformer] = None
+        self.step_fn, self.opt = build_train_step(model_cfg, n_micro=1,
+                                                  lr=tcfg.lr)
+
+    # ------------------------------------------------------------ lifecycle
+    def _init_state(self):
+        self.model = None           # free the old model first
+        gen = torch.Generator(self.device).manual_seed(0)
+        self.model = Transformer(self.model_cfg, generator=gen,
+                                 device=self.device)
+        return self.opt.init(self.model.params.tree())
+
+    def _restore(self, step: int):
+        """The model and optimizer state of checkpoint ``step``."""
+        if self.model is None:
+            self._init_state()
+        params = self.model.params.tree()
+        like = {"params": params, "opt": self.opt.init(params)}
+        tree = self.ckpt.restore(like, step=step, device=self.device)
+        with torch.no_grad():
+            _copy_into(params, tree["params"])
+        return tree["opt"]
+
+    # ----------------------------------------------------------------- run
+    def run(self) -> Dict[str, Any]:
+        attempts = 0
+        while True:
+            try:
+                return self._run_once()
+            except InjectedFault as e:
+                attempts += 1
+                self.restarts += 1
+                if attempts > self.tcfg.max_restarts:
+                    raise RuntimeError("restart budget exhausted") from e
+                # driver bounces; state comes back from the checkpoint
+
+    def _run_once(self) -> Dict[str, Any]:
+        start = 0
+        latest = self.ckpt.latest_step()
+        if latest is not None:
+            opt_state = self._restore(latest)
+            start = latest
+        else:
+            opt_state = self._init_state()
+        times: List[float] = []
+        for step in range(start, self.tcfg.steps):
+            t0 = time.perf_counter()
+            # injected delays land inside the timed window (they simulate a
+            # slow step); injected faults abort it like a real node loss
+            self.injector.check(step)
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in self.data.batch_at(step).items()}
+            opt_state, m = self.step_fn(self.model, opt_state, batch)
+            loss = float(m["loss"])
+            dt = time.perf_counter() - t0
+            if len(times) >= 3:
+                med = statistics.median(times[-8:])
+                if dt > self.tcfg.straggler_factor * med:
+                    self.straggler_flags += 1
+            times.append(dt)
+            self.metrics.append({"step": step, "loss": loss,
+                                 "grad_norm": float(m["grad_norm"]),
+                                 "time_s": dt})
+            if (step + 1) % self.tcfg.ckpt_every == 0 \
+                    or step + 1 == self.tcfg.steps:
+                self.ckpt.save(step + 1, {"params": self.model.params.tree(),
+                                          "opt": opt_state})
+        self.ckpt.wait()
+        return {"final_loss": self.metrics[-1]["loss"],
+                "steps_run": len(self.metrics),
+                "restarts": self.restarts,
+                "straggler_flags": self.straggler_flags}
+
+    # -------------------------------------------------------------- elastic
+    def resize(self, new_mesh) -> None:
+        raise NotImplementedError(
+            "Trainer.resize re-meshes a sharded run: the sharded pipeline "
+            "is ROADMAP A11")
+
+
+def _copy_into(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k])
+        else:
+            v.copy_(src[k])

@@ -357,6 +357,53 @@ def test_ssm_scan_rejects_mismatched_shapes(cuda):
         scan.ssm_scan(la, la, torch.zeros((2, 3), device=cuda))
 
 
+@pytest.mark.parametrize("b,s,f,s0_zero", [
+    (1, 1, 1, False),
+    (2, 1, 4099, False),           # S = 1
+    (2, 3, 1000, True),            # S = 3, F % 256 != 0, s0 = 0
+    (3, 37, 513, False),
+    (2, 300, 700, False),
+])
+def test_ssm_scan_bwd_kernel_matches_plain_version(cuda, b, s, f, s0_zero):
+    """The reverse scan's kernel against its plain loop, and both through
+    ``ssm_scan``'s autograd: one forward and one backward launch."""
+    rng = np.random.default_rng(b * s + f + 7)
+    la = -np.abs(rng.normal(0.3, 0.5, (b, s, f)))
+    bx = rng.normal(0, 1, (b, s, f))
+    s0 = np.zeros((b, f)) if s0_zero else rng.normal(0, 1, (b, f))
+    g = rng.normal(0, 1, (b, s, f))
+    la, bx, s0, g = (torch.from_numpy(a.astype(np.float32)).to(cuda)
+                     for a in (la, bx, s0, g))
+    states = scan.ssm_scan_ref(la, bx, s0)
+    n0 = scan.ssm_scan_bwd.launches
+    got = scan.ssm_scan_bwd(la, states, s0, g)
+    assert scan.ssm_scan_bwd.launches == n0 + 1
+    want = scan.ssm_scan_bwd_ref(la, states, s0, g)
+    for x, w in zip(got, want):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        scale = min(1.0, float(w.abs().max()))
+        torch.testing.assert_close(x, w, rtol=1e-5, atol=1e-5 * scale)
+    ins = [t.clone().requires_grad_(True) for t in (la, bx, s0)]
+    n0, n1 = scan.ssm_scan.launches, scan.ssm_scan_bwd.launches
+    out = scan.ssm_scan(*ins)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert (scan.ssm_scan.launches, scan.ssm_scan_bwd.launches) == \
+        (n0 + 1, n1 + 1)
+    for t, w in zip(ins, want):
+        scale = min(1.0, float(w.abs().max()))
+        torch.testing.assert_close(t.grad, w, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_ssm_scan_bwd_rejects_mismatched_shapes(cuda):
+    la = torch.zeros((2, 3, 4), device=cuda)
+    with pytest.raises(ValueError, match="expected log_a, states, g"):
+        scan.ssm_scan_bwd(la, la[:, :2], torch.zeros((2, 4), device=cuda),
+                          la)
+    with pytest.raises(ValueError, match="expected log_a, states, g"):
+        scan.ssm_scan_bwd(la, la, torch.zeros((2, 3), device=cuda), la)
+
+
 def _smoke_jamba():
     cfg = get_smoke_config("jamba-1.5-large-398b").scaled(moe=None)
     return cfg, T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -381,6 +428,74 @@ def test_mamba_mix_on_card_matches_cpu(cuda):
     for g, w in ((got[0], want[0]), (got[1][0], want[1][0]),
                  (got[1][1], want[1][1])):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def test_mamba_mix_gradients_on_card_match_cpu(cuda):
+    """Every input's and parameter's gradient through mamba_mix: on the
+    card through both scan kernels, on the CPU through both plain loops."""
+    cfg, params = _smoke_jamba()
+    m, d = cfg.mamba, cfg.d_model
+    di = m.d_inner(d)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 19, d)).astype(np.float32))
+    s0 = torch.from_numpy(rng.normal(0, 0.5, (2, di, m.d_state))
+                          .astype(np.float32))
+    c0 = torch.from_numpy(rng.normal(0, 0.5, (2, m.d_conv - 1, di))
+                          .astype(np.float32))
+    runs = []
+    for dev in ("cpu", cuda):
+        p = {k: v[0].to(dev, copy=True).requires_grad_(True)
+             for k, v in params["dec"]["sub0"]["mixer"].items()}
+        ins = [t.to(dev, copy=True).requires_grad_(True)
+               for t in (x, s0, c0)]
+        n0 = scan.ssm_scan_bwd.launches
+        out, (s1, c1) = mamba_mix(p, ins[0], cfg, (ins[1], ins[2]))
+        (out.square().sum() + s1.sum() + c1.sum()).backward()
+        assert scan.ssm_scan_bwd.launches - n0 == (0 if dev == "cpu" else 1)
+        runs.append({**{k: v.grad.cpu() for k, v in p.items()},
+                     **{n: t.grad.cpu() for n, t in zip("xsc", ins)}})
+    cpu, card = runs
+    for k, w in cpu.items():
+        assert float(w.abs().max()) > 0, k
+        scale = min(1.0, float(w.abs().max()))
+        torch.testing.assert_close(card[k], w, rtol=1e-4, atol=1e-4 * scale,
+                                   msg=k)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One smoke Jamba train step (Mamba, attention, experts; Adafactor):
+    loss, gradient norm and every parameter on the card within 1e-4 of
+    the CPU; the scans launch 2 x (forward, recompute) and 1 x backward
+    per Mamba layer."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import build_train_step
+
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    batch = SyntheticLMData(vocab=cfg.vocab, batch=2, seq=16,
+                            seed=1).batch_at(0)
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    runs = []
+    for dev in ("cpu", cuda):
+        # the same seeded weights, drawn anew: a model on the CPU holds
+        # (and trains) the very tensors it is given
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        model = T.Transformer(cfg, params, device=dev)
+        step, opt = build_train_step(cfg)
+        state = opt.init(model.params.tree())
+        n0 = (scan.ssm_scan.launches, scan.ssm_scan_bwd.launches)
+        state, m = step(model, state, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in batch.items()})
+        n1 = (scan.ssm_scan.launches, scan.ssm_scan_bwd.launches)
+        want = (0, 0) if dev == "cpu" else (2 * n_mamba, n_mamba)
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == want
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     [p.detach().cpu() for p in model.parameters()]))
+    (lc, nc, pc), (lg, ng, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(ng, nc, rtol=1e-4)
+    for a, b in zip(pg, pc):
+        scale = min(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
 
 
 def test_serve_step_on_card_matches_cpu(cuda):
