@@ -94,6 +94,19 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    6, a failure at step 15, every logged loss within 1e-5 relative of an
    uninterrupted run's, and a bf16 tree through ``CheckpointManager``
    bit for bit;
+11. (run after phase 8) the sharded TCQ pipeline on phase 3's graph and
+   queries: (a) the unit mesh, one rank over NCCL, through
+   ``TCQEngine(g, mesh=)`` on the kernel rung (wave_peel) and on the
+   composite with psum and with rs_ag (segdeg), cold then warm, each
+   equal to phase 3 in cores, TTIs, edge counts and every counter, with
+   no collective bytes; (b) ``TCQService(mesh=)`` draining phase 7's
+   first 24 windows, every ticket equal to the unsharded service's, and
+   ``serve_distributed`` with them arriving at half phase 7's closed-loop
+   throughput; (c) worlds of 2 and 4 gloo ranks sharing the card through
+   host memory (``launch/world.py``): (data, model) = (2, 1) on the
+   kernel, (1, 2) with psum and rs_ag, (2, 2) with rs_ag, every rank
+   equal to phase 3 and its collective bytes equal to the analytic
+   model.  A rank that fails or outlives its timeout fails the phase;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -560,7 +573,9 @@ def phase_main(dev) -> dict:
         f"{serial_s:.3f}s; composite batch: {comp_s:.3f}s "
         f"({iters} peel iterations)")
     log(f"launches by path: {json.dumps(by_path)}")
-    return {"g": g, "eng": eng, "reqs": reqs, "by_path": by_path}
+    return {"g": g, "eng": eng, "reqs": reqs, "by_path": by_path,
+            "batch": batch, "comp": comp, "cold_s": cold_s,
+            "warm_s": warm_s, "comp_s": comp_s}
 
 
 # ------------------------------------------ phase 4: where the time goes
@@ -1308,7 +1323,7 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"serving launches by path: {json.dumps(by_path)}")
-    return {"by_path": by_path}
+    return {"by_path": by_path, "capacity_qps": crep["qps"]}
 
 
 # ------------------------------------------- phase 8: the paper's baseline
@@ -2027,6 +2042,266 @@ def phase_trainer(dev) -> dict:
     return {"by_path": by_path}
 
 
+# ------------------------------------- phase 11: the sharded pipeline
+MESH_WINDOWS = 24           # phase 7's first windows, served on the mesh
+# several ranks sharing the one card over gloo: (world, ((shape, combine)))
+GLOO_WORLDS = ((2, (((2, 1), "psum"), ((1, 2), "psum"), ((1, 2), "rs_ag"))),
+               (4, (((2, 2), "rs_ag"),)))
+
+
+def counters(results) -> list:
+    """Each result's stats but the wall clock and the mesh's own fields."""
+    import dataclasses
+
+    skip = {"wall_time_s", "collective_bytes", "shard_occupancy"}
+    return [{k: v for k, v in dataclasses.asdict(r.stats).items()
+             if k not in skip} for r in results]
+
+
+def step_backend(eng) -> str:
+    """The backend of the step an engine's newest window pinned."""
+    return getattr(next(reversed(eng._win_cache.values())).step_fn,
+                   "backend", "?")
+
+
+def mesh_rank(state, reqs, cases, device: str) -> dict:
+    """One rank of a gloo world on the card (``launch/world.py``): phase
+    3's batch through ``TCQEngine(g, mesh=)`` for each (shape, combine),
+    cold then warm, with the launch counters zeroed around each run; the
+    bytes this rank handed to each collective in the cold run, and its
+    peak and resident device memory (engine built, both runs)."""
+    import gc
+
+    import torch
+    from repro_torch.core import TCQEngine, TemporalGraph
+    from repro_torch.core.distributed import combine_bytes_per_lane_iter
+    from repro_torch.core.scheduler import autotune_wave
+    from repro_torch.launch.mesh import Mesh
+
+    g = TemporalGraph.from_state(state)
+    out = {}
+    on_card = torch.device(device).type == "cuda"
+    for shape, combine in cases:
+        mesh = Mesh(shape, device=device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        eng = TCQEngine(g, mesh=mesh, combine=combine)
+        cold, cold_s, n_cold = run_path(lambda: eng.query_batch(reqs))
+        sent = dict(mesh.sent_bytes)
+        warm, warm_s, n_warm = run_path(lambda: eng.query_batch(reqs))
+        peak, resident = ((torch.cuda.max_memory_allocated(mesh.device),
+                           torch.cuda.memory_allocated(mesh.device))
+                          if on_card else (0, 0))
+        st = cold[0].stats
+        wave = autotune_wave(eng.num_vertices, st.window_edges,
+                             num_queries=len(reqs),
+                             lane_shards=mesh.lane_shards)
+        out[f"{shape[0]}x{shape[1]}-{combine}"] = {
+            "rank": mesh.rank, "backend": mesh.backend,
+            "host_staged": mesh.host_staged,
+            "cores": [digest(r) for r in cold],
+            "warm_cores": [digest(r) for r in warm],
+            "cold_s": cold_s, "warm_s": warm_s,
+            "launches": n_cold, "warm_launches": n_warm,
+            "steps": st.device_steps, "peel_iters": st.peel_iters,
+            "wave": wave, "collective_bytes": st.collective_bytes,
+            "want_bytes": combine_bytes_per_lane_iter(
+                eng.stats()["distributed"]["combine"], eng.num_vertices,
+                mesh.model_shards) * wave * st.peel_iters,
+            "shard_occupancy": st.shard_occupancy,
+            "backend_step": step_backend(eng),
+            "sent_bytes": sent, "peak_bytes": peak,
+            "resident_bytes": resident,
+        }
+        del eng, cold, warm
+        gc.collect()
+    return out
+
+
+def phase_mesh(dev, g, main_run: dict, capacity_qps: float) -> dict:
+    """Phase 11: the sharded pipeline on the card.  11a the unit mesh over
+    NCCL (kernel rung, then the composite with psum and with rs_ag), 11b
+    serving on it (a TCQService drain, then serve_distributed), 11c
+    worlds of 2 and 4 gloo ranks sharing the card through host memory."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import TCQEngine, TCQService
+    from repro_torch.data import TCQRequestStream
+    from repro_torch.launch.mesh import Mesh, init_world
+    from repro_torch.launch.serve import serve_distributed
+    from repro_torch.launch.world import run_world
+
+    t11 = time.perf_counter()
+    on_card = dev.type == "cuda"      # launch checks apply on the card
+    reqs = main_run["reqs"]
+    want = [digest(r) for r in main_run["batch"]]
+    by_path, times = {}, {}
+    rdzv = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    backend = "nccl" if dev.type == "cuda" else "gloo"   # (CPU rehearsal)
+    init_world(backend, init_method=f"file://{rdzv}/rendezvous", rank=0,
+               world_size=1, timeout_s=300)
+    try:
+        mesh = Mesh((1, 1), device=dev)
+        log(f"11a: {mesh} (one rank: no collective runs)")
+        runs = (("kernel", {}, "batch"),
+                ("psum", {"use_kernel": False, "combine": "psum"}, "comp"),
+                ("rs_ag", {"use_kernel": False, "combine": "rs_ag"}, "comp"))
+        for name, kw, ref in runs:
+            eng = TCQEngine(g, mesh=mesh, **kw)
+            cold, cold_s, n_cold = run_path(lambda: eng.query_batch(reqs))
+            warm, warm_s, n_warm = run_path(lambda: eng.query_batch(reqs))
+            for what, res in (("cold", cold), ("warm", warm)):
+                check([digest(r) for r in res] == want,
+                      f"11a {name} {what}: cores differ from phase 3's")
+                check(counters(res) == counters(main_run[ref]),
+                      f"11a {name} {what}: counters differ from phase 3's "
+                      f"{'batch' if ref == 'batch' else 'composite batch'}")
+            d = eng.stats()["distributed"]
+            check(d["collective_bytes"] == 0 and d["backend"] == backend,
+                  f"11a {name}: {d}")
+            steps, iters = cold[0].stats.device_steps, \
+                cold[0].stats.peel_iters
+            for n in (n_cold, n_warm) if on_card else ():
+                if name == "kernel":
+                    check(n["wave_peel"] >= steps and n["segdeg"] == 0,
+                          f"11a kernel rung launches {n}")
+                else:
+                    check(n["segdeg"] >= 2 * iters and n["wave_peel"] == 0,
+                          f"11a {name} launches {n}")
+                check(n["ssm_scan"] == n["ssm_scan_bwd"] == 0,
+                      f"11a {name}: a scan launched")
+            by_path[f"mesh_unit_{name}_cold"] = n_cold
+            by_path[f"mesh_unit_{name}_warm"] = n_warm
+            times[name] = (cold_s, warm_s)
+            log(f"11a unit mesh, {name} ({step_backend(eng)} step): "
+                f"cold {cold_s:.3f}s, warm {warm_s:.3f}s (phase 3: "
+                f"{main_run['cold_s']:.3f} / {main_run['warm_s']:.3f}s "
+                f"fused, composite {main_run['comp_s']:.3f}s); {steps} "
+                f"steps, {iters} peel iterations; launches cold "
+                f"{json.dumps(n_cold)}; equal to phase 3 in cores, TTIs, "
+                "edge counts and counters; 0 collective bytes")
+
+        # -- 11b: serving on the unit mesh
+        stream = TCQRequestStream(int(g.unique_ts[0]),
+                                  t_max=int(g.unique_ts[-1]), k=12, span=64,
+                                  seed=11)
+        windows = list(stream.requests(MESH_WINDOWS))
+
+        def drain(**kw):
+            svc = TCQService(g, **kw)
+            for r in windows:
+                svc.submit({k: r[k] for k in ("k", "ts", "te")})
+            return svc, {tk.id: tk for tk in svc.run_until_idle()}
+
+        (_, plain_tk), plain_s, n_plain = run_path(lambda: drain(device=dev))
+        (msvc, mesh_tk), mesh_s, n_mesh = run_path(lambda: drain(mesh=mesh))
+        check(mesh_tk.keys() == plain_tk.keys(), "11b: ticket ids differ")
+        for tid, tk in mesh_tk.items():
+            check(tk.status == "done" and digest(tk.result)
+                  == digest(plain_tk[tid].result),
+                  f"11b: ticket {tid} differs from the unsharded service's")
+        check(all(len(p["shard_occupancy"]) == 1
+                  and p["collective_bytes"] == 0 for p in msvc.pool_log),
+              "11b: pool log without one shard's occupancy")
+        check(not on_card or (n_mesh["wave_peel"] > 0
+                              and n_mesh["segdeg"] == 0),
+              f"11b drain launches {n_mesh}")
+        by_path["mesh_unit_service"] = n_mesh
+        log(f"11b TCQService(mesh=unit) drained {len(mesh_tk)} windows in "
+            f"{mesh_s:.3f}s (unsharded {plain_s:.3f}s), every ticket equal "
+            f"to the unsharded service's; {len(msvc.pool_log)} pools, "
+            f"shard occupancy "
+            f"{[p['shard_occupancy'] for p in msvc.pool_log][:4]}")
+        qps = 0.5 * capacity_qps
+        open_reqs = list(stream.open_loop(MESH_WINDOWS, qps=qps))
+        (_, served, rep), _, n_sd = run_path(lambda: serve_distributed(
+            g, open_reqs, mesh=mesh, controllers=2))
+        plain = {(tk.k, tk.ts, tk.te): digest(tk.result)
+                 for tk in plain_tk.values()}
+        check(len(served) == MESH_WINDOWS and all(
+            digest(tk.result) == plain[(tk.k, tk.ts, tk.te)]
+            for tk in served), "11b: serve_distributed tickets differ")
+        check(not on_card or (n_sd["wave_peel"] > 0
+                              and n_sd["segdeg"] == 0),
+              f"11b serve_distributed launches {n_sd}")
+        by_path["mesh_unit_serve_distributed"] = n_sd
+        log(f"11b serve_distributed (unit mesh, 2 controllers, "
+            f"{MESH_WINDOWS} windows offered at {qps:.3f}/s, half phase "
+            f"7's closed-loop {capacity_qps:.3f}/s): {rep['completed']} "
+            f"done in {rep['wall_s']:.3f}s ({rep['qps']:.3f} qps), p50 "
+            f"{rep['p50_ms']:.1f} ms, p95 {rep['p95_ms']:.1f} ms, p99 "
+            f"{rep['p99_ms']:.1f} ms, shed rate 0.000 (no admission gate); "
+            f"every ticket equal to the unsharded service's")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+
+    # -- 11c: several ranks on the one card, over gloo through host memory
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    state = g.state_dict()
+    for world, cases in GLOO_WORLDS:
+        t0 = time.perf_counter()
+        outs = run_world("chip_smoke:mesh_rank", world,
+                         args=(state, reqs, cases,
+                               "cuda:0" if dev.type == "cuda" else "cpu"),
+                         backend="gloo",
+                         timeout_s=600)
+        log(f"11c: a world of {world} gloo ranks on cuda:0 (collectives "
+            f"through host memory, not NCCL) ran in "
+            f"{time.perf_counter() - t0:.1f}s, process start included")
+        for shape, combine in cases:
+            key = f"{shape[0]}x{shape[1]}-{combine}"
+            per = [o[key] for o in outs]
+            total = {k: sum(p["launches"][k] for p in per)
+                     for k in per[0]["launches"]}
+            for p in per:
+                check(p["host_staged"] == (dev.type == "cuda")
+                      and p["backend"] == "gloo",
+                      f"11c {key}: rank {p['rank']} not gloo via the host")
+                check(p["cores"] == want and p["warm_cores"] == want,
+                      f"11c {key}: rank {p['rank']} differs from phase 3")
+                check(p["collective_bytes"] == p["want_bytes"],
+                      f"11c {key}: rank {p['rank']} counted "
+                      f"{p['collective_bytes']} collective bytes, want "
+                      f"{p['want_bytes']}")
+                op = "all_reduce" if combine == "psum" else "reduce_scatter"
+                check((p["sent_bytes"][op] > 0) == (shape[1] > 1),
+                      f"11c {key}: rank {p['rank']} handed "
+                      f"{p['sent_bytes']} to the collectives")
+                n = p["launches"]
+                if not on_card:
+                    pass
+                elif shape[1] == 1:
+                    check(n["wave_peel"] > 0 and n["segdeg"] == 0,
+                          f"11c {key}: rank {p['rank']} launches {n}")
+                else:
+                    check(n["segdeg"] > 0 and n["wave_peel"] == 0,
+                          f"11c {key}: rank {p['rank']} launches {n}")
+                log(f"11c {key} rank {p['rank']} ({p['backend_step']} "
+                    f"step): cold {p['cold_s']:.3f}s, warm "
+                    f"{p['warm_s']:.3f}s, {p['steps']} steps of W="
+                    f"{p['wave']}, {p['peel_iters']} peel iterations, "
+                    f"{p['collective_bytes']} collective bytes (= "
+                    f"{p['want_bytes']}, the analytic ring bytes of the "
+                    f"degree combine), operand bytes handed to the "
+                    f"collectives {json.dumps(p['sent_bytes'])}, peak "
+                    f"{p['peak_bytes']} B and resident "
+                    f"{p['resident_bytes']} B of device memory, shard "
+                    f"occupancy "
+                    f"{[round(x, 3) for x in p['shard_occupancy']]}, "
+                    f"launches {json.dumps(p['launches'])}")
+            by_path[f"mesh_gloo_{key}"] = total
+    log(f"phase 11 took {time.perf_counter() - t11:.1f}s; launches by "
+        f"path: {json.dumps(by_path)}")
+    return {"by_path": by_path, "times": times}
+
+
 def main() -> int:
     try:
         import torch
@@ -2086,6 +2361,10 @@ def main() -> int:
     done("phase 7 (serving)")
     base = phase_baseline(dev, g, main_run["reqs"][0])
     done("phase 8 (baseline)")
+    meshed = phase_mesh(dev, g, main_run, served["capacity_qps"])
+    done("phase 11 (the sharded pipeline)")
+    for key in ("batch", "comp"):
+        del main_run[key]
     del g
     torch.cuda.empty_cache()
     t9 = time.perf_counter()
@@ -2107,8 +2386,8 @@ def main() -> int:
     log(f"phase 10 took {time.perf_counter() - t10:.1f}s")
     done("phase 10 (training)")
     by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
-               **base["by_path"], **fam["by_path"], **train_smoke,
-               **trained["by_path"], **lifecycle["by_path"]}
+               **base["by_path"], **meshed["by_path"], **fam["by_path"],
+               **train_smoke, **trained["by_path"], **lifecycle["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

@@ -1,6 +1,6 @@
-"""Config registry: the 10 assigned architectures by id, and their reduced
-smoke variants.  A copy of ``repro.configs`` without the TCQ-engine
-workloads (``get_tcq_config``), which the port's engine does not read."""
+"""Config registry: the 10 assigned architectures by id, their reduced
+smoke variants, and the TCQ-engine workload shapes (``configs/tcq.py``).
+A copy of ``repro.configs``."""
 
 from __future__ import annotations
 
@@ -37,3 +37,15 @@ def get_config(name: str):
 def get_smoke_config(name: str):
     return get_config(name).smoke()
 
+
+
+def get_tcq_config(name: str):
+    from repro_torch.configs import tcq
+
+    return tcq.CONFIGS[name]
+
+
+def list_tcq_configs() -> List[str]:
+    from repro_torch.configs import tcq
+
+    return list(tcq.CONFIGS)

@@ -63,8 +63,11 @@ class _Slot:
     __slots__ = ("buf", "lanes", "dirty", "inflight", "params", "host",
                  "event")
 
-    def __init__(self, wave: int, num_vertices: int, device: torch.device):
-        self.buf = torch.zeros((wave, num_vertices), dtype=torch.bool,
+    def __init__(self, wave: int, num_vertices: int, device: torch.device,
+                 rows: Optional[int] = None):
+        # a sharded pipeline's buffer holds only this rank's ``rows`` lanes
+        self.buf = torch.zeros((wave if rows is None else rows,
+                                num_vertices), dtype=torch.bool,
                                device=device)
         self.lanes: List[Optional[Tuple[QueryState, RowCursor]]] = \
             [None] * wave
@@ -92,14 +95,14 @@ class WavePipeline:
 
     def __init__(self, tel: DeviceTEL, num_vertices: int,
                  seg_pair, seg_vert, wave: int, depth: int = 2,
-                 step_fn=None):
+                 step_fn=None, device=None):
         self.tel = tel
         self.num_vertices = num_vertices
         self.seg_pair = seg_pair
         self.seg_vert = seg_vert
         self.wave = wave
         self.depth = max(1, int(depth))
-        self.device = tel.t.device
+        self.device = tel.t.device if device is None else torch.device(device)
         # the device step: a prebuilt in-place ``make_wave_step_fn``
         # closure (the engine pins one per windowed TEL), else the default
         # dispatch for the TEL's device
@@ -108,6 +111,41 @@ class WavePipeline:
                                         seg_pair=seg_pair, seg_vert=seg_vert,
                                         donate=True)
         self._step = step_fn
+
+    # ------------------------------------------------- subclass seams
+    # The sharded pipeline (core/distributed.py) overrides these hooks to
+    # keep only its rank's lanes, refill them from host rows, and account
+    # per-shard occupancy and collective bytes.  These bodies are the
+    # single-device pipeline's.
+    def _new_slot(self) -> _Slot:
+        return _Slot(self.wave, self.num_vertices, self.device)
+
+    def _refill_lanes(self, slot: _Slot, sets, fills) -> None:
+        """Refill lanes of ``slot.buf`` in place: ``sets`` is [(lane,
+        row)] warm starts, ``fills`` [(lane, bool)] constant masks (the
+        lists name disjoint lanes)."""
+        for li, value in fills:
+            slot.buf[li].fill_(value)
+        for li, row in sets:
+            slot.buf[li].copy_(row)
+
+    def _record_occupied(self, occupied: List[int]) -> None:
+        pass
+
+    def _warm_row(self, res: StepResult, packed: np.ndarray, li: int):
+        """Thunk producing lane ``li``'s [V] row for a warm start, only
+        called when the cell becomes its row's best warm start.  A copy:
+        this lane's next step overwrites ``res.alive``."""
+        return lambda: res.alive[li].clone()
+
+    def _commit_params(self, slot: _Slot, params) -> torch.Tensor:
+        """Stage the per-lane (ts, te, k, h) lists and send them to the
+        device: a [4, W] int32 tensor."""
+        slot.params.numpy()[:] = params
+        return slot.params.to(self.device, non_blocking=True)
+
+    def _finish_pool(self, pool_stats: QueryStats) -> None:
+        pass
 
     def run(self, uts: np.ndarray, k: int, h: int, prune: bool,
             stats: QueryStats, cache=None
@@ -182,6 +220,7 @@ class WavePipeline:
             fixpoint loop never spends iterations on them."""
             refill()
             release_cancelled(slot)
+            sets, fills = [], []
             for li in range(W):
                 if slot.lanes[li] is not None:
                     continue
@@ -192,14 +231,14 @@ class WavePipeline:
                 slot.lanes[li] = (s, row)
                 warm = s.warm_start(row)
                 if warm is not None:
-                    slot.buf[li].copy_(warm)
+                    sets.append((li, warm))
                 else:
-                    slot.buf[li].fill_(True)
+                    fills.append((li, True))
                 slot.dirty.discard(li)
                 pool_stats.lane_refills += 1
-            for li in sorted(slot.dirty):
-                slot.buf[li].fill_(False)
+            fills.extend((li, False) for li in sorted(slot.dirty))
             slot.dirty.clear()
+            self._refill_lanes(slot, sets, fills)
 
         def dispatch(slot: _Slot) -> None:
             occupied = [li for li in range(W)
@@ -216,8 +255,7 @@ class WavePipeline:
                 ts_l[li], te_l[li] = s.window(row)
                 k_l[li], h_l[li] = s.k, s.h
                 s.stats.cells_evaluated += 1
-            slot.params.numpy()[:] = (ts_l, te_l, k_l, h_l)
-            params = slot.params.to(self.device, non_blocking=True)
+            params = self._commit_params(slot, (ts_l, te_l, k_l, h_l))
             res = self._step(slot.buf, *params)
             # a donating step peeled slot.buf in place; a non-donating one
             # (a degradation-ladder rung) returned a fresh mask, which the
@@ -235,6 +273,7 @@ class WavePipeline:
             pool_stats.device_steps += 1
             nonlocal occupied_total
             occupied_total += len(occupied)
+            self._record_occupied(occupied)
 
         def retire(slot: _Slot) -> None:
             res = slot.inflight
@@ -263,10 +302,8 @@ class WavePipeline:
                     slot.lanes[li] = None
                     slot.dirty.add(li)
                     continue
-                # a copy: this lane's next step overwrites res.alive
                 keep = s.retire(row, lo_l[li], hi_l[li], ne_l[li],
-                                packed[li],
-                                lambda li=li: res.alive[li].clone())
+                                packed[li], self._warm_row(res, packed, li))
                 if not keep:
                     slot.lanes[li] = None
                     slot.dirty.add(li)
@@ -277,8 +314,7 @@ class WavePipeline:
         # admitted new queries since their last dispatch), and the ring
         # only stops once nothing is in flight and the final admit poll is
         # empty.
-        slots = [_Slot(W, self.num_vertices, self.device)
-                 for _ in range(self.depth)]
+        slots = [self._new_slot() for _ in range(self.depth)]
         for slot in slots:
             assemble(slot)
             dispatch(slot)
@@ -297,3 +333,4 @@ class WavePipeline:
 
         if pool_stats.device_steps:
             pool_stats.occupancy = occupied_total / pool_stats.device_steps
+        self._finish_pool(pool_stats)

@@ -33,7 +33,8 @@ runs serial, ``query_batch`` loops ``query``, and the core cache is off.
 
 The engine runs on the card unless told otherwise: ``TCQEngine(graph)``
 resolves to CUDA and raises when there is none.  ``device="cpu"`` runs the
-plain PyTorch versions of the kernels.
+plain PyTorch versions of the kernels.  ``mesh=`` shards the wave pools
+over a mesh of ranks (``core/distributed.py``).
 """
 
 from __future__ import annotations
@@ -47,14 +48,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.corecache import CacheView, CoreCache
+from repro_torch.core.distributed import (ShardedDegradationLadder,
+                                          ShardedWavePipeline, ShardPlan,
+                                          make_sharded_kernel_step,
+                                          make_sharded_step_fn, plan_arrays,
+                                          rank_arrays)
 from repro_torch.core.engine import WavePipeline
 from repro_torch.core.graph import DeviceTEL, TemporalGraph, pow2_capacity
 from repro_torch.core.intervals import IntervalSet
 from repro_torch.core.results import CoreResult, QueryStats, TCQResult
-from repro_torch.core.scheduler import QueryState, autotune_wave
+from repro_torch.core.scheduler import (QueryState, autotune_wave,
+                                        choose_combine)
 from repro_torch.core.tcd import TCDResult, tcd
 from repro_torch.core.wave import ResilienceConfig, make_wave_step_fn
 from repro_torch.kernels.segdeg.ops import make_banded_segsum
+from repro_torch.launch.mesh import Mesh
 
 _I32_MIN = np.iinfo(np.int32).min
 _WINDOW_CACHE_MAX = 64
@@ -119,17 +127,49 @@ class TCQEngine:
     ``num_vertices`` is the *device* vertex width (a capacity >= the live
     vertex count once the graph has grown); padded vertices have no
     incident edges, peel out on the first fixpoint iteration for any
-    k >= 1, and never appear in results.
+    k >= 1, and never appear in results.  On a mesh it is rounded up to a
+    multiple of 8 x the model shards.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) shards every wave pool
+    (``core/distributed.py``); the engine then runs on the mesh's device,
+    every rank of the mesh runs the same calls, and ``stats()`` gains a
+    ``"distributed"`` entry.  ``combine`` picks the degree combine of a
+    model-sharded mesh: ``"psum"``, ``"rs_ag"`` or ``"auto"``.  There a
+    rank's wave pools put only its edge shards on its device; the whole
+    TEL goes there when a serial query or a custom degree reads it.
     """
 
     def __init__(self, graph: TemporalGraph, degree_fn=None, *,
                  device=None, use_kernel: Optional[bool] = None, mesh=None,
-                 combine=None, cache=None, resilience=None):
-        for name, val in (("mesh", mesh), ("combine", combine)):
-            if val is not None and val is not False:
-                raise NotImplementedError(
-                    f"TCQEngine({name}=...) is not ported to the PyTorch "
-                    "engine yet (ROADMAP A11, the sharded pipeline)")
+                 combine: str = "auto", cache=None, resilience=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.launch.mesh."
+                                f"Mesh, got {type(mesh).__name__}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device} but the mesh computes "
+                                 f"on {mesh.device}")
+            device = mesh.device
+            self._lane_shards = mesh.lane_shards
+            self._model_shards = mesh.model_shards
+            self._dist = {"pool_runs": 0, "device_steps": 0,
+                          "collective_bytes": 0}
+        else:
+            self._lane_shards = self._model_shards = 1
+            self._dist = None
+        # a mesh with several model shards peels only this rank's edge
+        # shard: the whole TEL goes to the device only when a path that
+        # reads it (serial mode, a custom degree) asks for it
+        self._edge_sharded = self._model_shards > 1
+        self._tel = None
+        if combine not in ("auto", "psum", "rs_ag"):
+            raise ValueError(f"combine must be 'auto', 'psum' or 'rs_ag', "
+                             f"got {combine!r}")
+        self._combine_req = combine
+        self._combine = None
+        self._shard_plan = None
+        self._plan_arrays = None
         self.device = resolve_device(device)
         self._use_kernel = (self.device.type == "cuda"
                             if use_kernel is None else bool(use_kernel))
@@ -171,18 +211,78 @@ class TCQEngine:
                 self._pair_cap = pow2_capacity(graph.num_pairs)
             if grew_verts:
                 self._v_cap = pow2_capacity(graph.num_vertices)
+        if self.mesh is not None:
+            # one vertex width everywhere: the sharded step needs V to be
+            # a multiple of 8 x model shards (byte-aligned alive slices),
+            # and the window TELs' hp_src sentinel must sit at that width
+            self._v_cap = ShardPlan._round_vertices(self._v_cap,
+                                                    self._model_shards)
         self.graph = graph
-        self.tel = graph.device_tel(edge_capacity=self._edge_cap,
-                                    pair_capacity=self._pair_cap,
-                                    vertex_capacity=self._v_cap,
-                                    device=self.device)
+        self._tel = None
         if initial or grew_verts:
             self.num_vertices = self._v_cap
             self._ones = torch.ones(self._v_cap, dtype=torch.bool,
                                     device=self.device)
-        self._remember_aux(self.epoch, _EpochAux(
-            self.tel.pair_u, self.tel.pair_v, self.tel.hp_src,
-            self.tel.hp_pair, self._pair_cap, self._v_cap))
+        if not self._edge_sharded:
+            self._remember_aux(self.epoch, _EpochAux(
+                self.tel.pair_u, self.tel.pair_v, self.tel.hp_src,
+                self.tel.hp_pair, self._pair_cap, self._v_cap))
+        if self.mesh is not None:
+            self._install_shards(graph, initial)
+
+    @property
+    def tel(self) -> DeviceTEL:
+        """The current snapshot's whole TEL on the engine's device, padded
+        to the capacity classes; built at install, or on an edge-sharded
+        mesh at first use."""
+        if self._tel is None:
+            self._tel = self.graph.device_tel(
+                edge_capacity=self._edge_cap, pair_capacity=self._pair_cap,
+                vertex_capacity=self._v_cap, device=self.device)
+        return self._tel
+
+    def _install_shards(self, graph: TemporalGraph, initial: bool) -> None:
+        """Build, or refresh in place, the frozen-ownership shard plan;
+        this rank's model shard of the whole graph goes to its device
+        when a step first reads it (``_shard_arrays``)."""
+        if initial or self._shard_plan is None:
+            self._shard_plan = ShardPlan.build(graph, self._model_shards,
+                                               vertex_capacity=self._v_cap)
+        else:
+            self._shard_plan.refresh(graph, vertex_capacity=self._v_cap)
+        plan = self._shard_plan
+        if plan.num_vertices != self._v_cap:
+            raise AssertionError(f"shard plan width {plan.num_vertices} "
+                                 f"!= engine width {self._v_cap}")
+        self._plan_arrays = None        # shipped at first use
+        if self._combine_req == "auto":
+            # a nominal wave of 32 lanes: the choice only flips on V
+            self._combine = choose_combine(self._v_cap, 32,
+                                           self._model_shards)
+        else:
+            self._combine = self._combine_req
+
+    def _sharded_step(self, shards, tel: Optional[DeviceTEL]):
+        """The per-rank step (or ladder) for one window entry: ``shards()``
+        ships this rank's edge shards (called only when a composite rung
+        or the ladder reads them), ``tel`` is the whole window TEL (the
+        fused kernel's input, on the device, with one model shard; the
+        oracle's, on the host, when edges are sharded; else None).  With
+        ``use_kernel`` one model shard takes the fused kernel and several
+        the composite over segdeg; a kernel that declines the TEL on the
+        card raises."""
+        plan = self._shard_plan
+        if self._resilience is not None:
+            return ShardedDegradationLadder(
+                self.mesh, shards(), tel, self._v_cap, p_cap=plan.p_cap,
+                combine=self._combine, use_kernel=self._use_kernel,
+                config=self._resilience)
+        if self._use_kernel and self._model_shards == 1:
+            return make_sharded_kernel_step(self.mesh, tel, self._v_cap,
+                                            donate=True)
+        return make_sharded_step_fn(
+            self.mesh, shards(), num_vertices=self._v_cap, p_cap=plan.p_cap,
+            combine=self._combine, donate=True)
 
     def update_graph(self, graph: TemporalGraph) -> int:
         """Install a new graph snapshot (streaming append) under a fresh
@@ -258,7 +358,7 @@ class TCQEngine:
         epoch = int(epoch)
         if epoch == self.epoch:
             return
-        aux = self._epoch_aux.pop(self.epoch)
+        aux = self._epoch_aux.pop(self.epoch, None)
         moved = [(k, v) for k, v in self._win_cache.items()
                  if k[0] == self.epoch]
         for k, _ in moved:
@@ -266,7 +366,8 @@ class TCQEngine:
         if self.core_cache is not None:
             self.core_cache.rebase_epoch(self.epoch, epoch)
         self.epoch = epoch
-        self._epoch_aux[epoch] = aux
+        if aux is not None:
+            self._epoch_aux[epoch] = aux
         for (_, ts, te), v in moved:
             self._win_cache[(epoch, ts, te)] = v
 
@@ -283,7 +384,8 @@ class TCQEngine:
     # -------------------------------------------------------- window slicing
     def _window_tel(self, Ts: int, Te: int, *,
                     graph: Optional[TemporalGraph] = None,
-                    epoch: Optional[int] = None) -> WindowTEL:
+                    epoch: Optional[int] = None,
+                    pool: bool = False) -> WindowTEL:
         """Device TEL truncated to [Ts, Te] for one epoch's snapshot.
 
         Edge arrays are padded to a power-of-two bucket with sentinel
@@ -294,9 +396,17 @@ class TCQEngine:
         fused kernel's band tables follow the truncation's segment ids),
         or with ``resilience`` its degradation ladder, whose rungs never
         donate the lane buffer.
+
+        On an edge-sharded mesh a pool's entry (``pool=True``) holds only
+        this rank's edge shards and the sharded step (``tel`` None; with
+        ``resilience`` the oracle's whole TEL stays on the host), and a
+        serial query's whole window is built afresh, uncached.
         """
         g = self.graph if graph is None else graph
         ep = self.epoch if epoch is None else int(epoch)
+        if self._edge_sharded and not pool:
+            tel, v_cap, e = self._whole_window(g, ep, Ts, Te, self.device)
+            return WindowTEL(tel, None, None, v_cap, e)
         key = (ep, int(Ts), int(Te))
         hit = self._win_cache.get(key)
         if hit is not None:
@@ -304,40 +414,82 @@ class TCQEngine:
             self._win_cache.move_to_end(key)
             return hit
         self._win_misses += 1
-        aux = self._aux_for(ep, g)
-        idx = np.flatnonzero((g.t >= Ts) & (g.t <= Te))
-        e = int(idx.size)
-        if ep == self.epoch and e >= g.num_edges:
-            tel, v_cap = self.tel, self._v_cap
+        if self._edge_sharded:
+            e = int(np.count_nonzero((g.t >= Ts) & (g.t <= Te)))
+            host = (self._whole_window(g, ep, Ts, Te, torch.device("cpu"))[0]
+                    if self._resilience is not None else None)
+            out = WindowTEL(None, None, None, self._v_cap, e,
+                            self._sharded_step(
+                                lambda: self._shard_arrays(g, ep, Ts, Te, e),
+                                host))
         else:
-            pad = pow2_capacity(e) - e
-            t_w = np.concatenate([g.t[idx], np.full(pad, _I32_MIN, np.int32)])
-            cols = {
-                "src": np.concatenate([g.src[idx], np.zeros(pad, np.int32)]),
-                "dst": np.concatenate([g.dst[idx], np.zeros(pad, np.int32)]),
-                "t": t_w,
-                "pair_id": np.concatenate(
-                    [g.pair_id[idx], np.full(pad, aux.pair_cap, np.int32)]),
-                "time_perm": np.argsort(t_w, kind="stable").astype(np.int32),
-            }
-            dev = {k: torch.from_numpy(v).to(self.device)
-                   for k, v in cols.items()}
-            tel = DeviceTEL(pair_u=aux.pair_u, pair_v=aux.pair_v,
-                            hp_src=aux.hp_src, hp_pair=aux.hp_pair, **dev)
-            v_cap = aux.v_cap
-        seg_pair = make_banded_segsum(aux.pair_cap, tel.pair_id)
-        seg_vert = make_banded_segsum(v_cap, tel.hp_src)
-        step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
-                                 seg_vert=seg_vert,
-                                 use_kernel=self._use_kernel,
-                                 donate=self._resilience is None,
-                                 resilience=self._resilience)
-        out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
+            tel, v_cap, e = self._whole_window(g, ep, Ts, Te, self.device)
+            seg_pair = make_banded_segsum(int(tel.pair_u.shape[0]),
+                                          tel.pair_id)
+            seg_vert = make_banded_segsum(v_cap, tel.hp_src)
+            if self.mesh is not None:
+                step = self._sharded_step(
+                    lambda: self._shard_arrays(g, ep, Ts, Te, e), tel)
+            else:
+                step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
+                                         seg_vert=seg_vert,
+                                         use_kernel=self._use_kernel,
+                                         donate=self._resilience is None,
+                                         resilience=self._resilience)
+            out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
         if len(self._win_cache) >= _WINDOW_CACHE_MAX:
             self._win_cache.popitem(last=False)     # evict least-recent
             self._win_evictions += 1
         self._win_cache[key] = out
         return out
+
+    def _whole_window(self, g: TemporalGraph, ep: int, Ts: int, Te: int,
+                      device: torch.device) -> Tuple[DeviceTEL, int, int]:
+        """Snapshot ``g``'s window [Ts, Te] as one TEL on ``device`` ->
+        (tel, vertex width, live edges): the current whole TEL when the
+        window spans it, else the truncation, padded to a power of two.
+        Pair tables on the engine's device are cached per epoch."""
+        idx = np.flatnonzero((g.t >= Ts) & (g.t <= Te))
+        e = int(idx.size)
+        on_engine = device == self.device
+        if on_engine and ep == self.epoch and e >= g.num_edges:
+            return self.tel, self._v_cap, e
+        if on_engine:
+            aux = self._aux_for(ep, g)
+        else:
+            arrs = g.tel_arrays(pair_capacity=self._pair_cap,
+                                vertex_capacity=self._v_cap)
+            aux = _EpochAux(*(torch.from_numpy(arrs[k]).to(device)
+                              for k in ("pair_u", "pair_v", "hp_src",
+                                        "hp_pair")),
+                            self._pair_cap, self._v_cap)
+        pad = pow2_capacity(e) - e
+        t_w = np.concatenate([g.t[idx], np.full(pad, _I32_MIN, np.int32)])
+        cols = {
+            "src": np.concatenate([g.src[idx], np.zeros(pad, np.int32)]),
+            "dst": np.concatenate([g.dst[idx], np.zeros(pad, np.int32)]),
+            "t": t_w,
+            "pair_id": np.concatenate(
+                [g.pair_id[idx], np.full(pad, aux.pair_cap, np.int32)]),
+            "time_perm": np.argsort(t_w, kind="stable").astype(np.int32),
+        }
+        dev = {k: torch.from_numpy(v).to(device) for k, v in cols.items()}
+        tel = DeviceTEL(pair_u=aux.pair_u, pair_v=aux.pair_v,
+                        hp_src=aux.hp_src, hp_pair=aux.hp_pair, **dev)
+        return tel, aux.v_cap, e
+
+    def _shard_arrays(self, g: TemporalGraph, ep: int, Ts: int, Te: int,
+                      e: int) -> Tuple[torch.Tensor, ...]:
+        """This rank's six edge shards of snapshot ``g``'s window [Ts, Te]
+        (``e`` live edges) on its device: the installed plan's when the
+        window spans the current snapshot."""
+        plan = self._shard_plan
+        if ep == self.epoch and e >= g.num_edges:
+            if self._plan_arrays is None:
+                self._plan_arrays = rank_arrays(plan_arrays(plan), self.mesh)
+            return self._plan_arrays
+        return rank_arrays(plan.window_arrays(g, int(Ts), int(Te))
+                           + plan.hp_arrays(g), self.mesh)
 
     # ------------------------------------------------------------ pool seam
     def make_pool(self, lo: int, hi: int, *,
@@ -346,12 +498,25 @@ class TCQEngine:
                   wave: Union[int, str] = "auto", depth: int = 2):
         """Window TEL + lane pipeline for one pool run; returns
         ``(pipe, wt, wave)`` with W autotuned when ``wave="auto"``."""
-        wt = self._window_tel(int(lo), int(hi), graph=graph, epoch=epoch)
+        wt = self._window_tel(int(lo), int(hi), graph=graph, epoch=epoch,
+                              pool=True)
+        if self.mesh is None:
+            if wave == "auto":
+                wave = autotune_wave(wt.num_vertices, wt.window_edges,
+                                     num_queries=num_queries, depth=depth)
+            pipe = WavePipeline(wt.tel, wt.num_vertices, wt.seg_pair,
+                                wt.seg_vert, wave, depth, step_fn=wt.step_fn)
+            return pipe, wt, wave
+        L = self._lane_shards
         if wave == "auto":
             wave = autotune_wave(wt.num_vertices, wt.window_edges,
-                                 num_queries=num_queries, depth=depth)
-        pipe = WavePipeline(wt.tel, wt.num_vertices, wt.seg_pair,
-                            wt.seg_vert, wave, depth, step_fn=wt.step_fn)
+                                 num_queries=num_queries, depth=depth,
+                                 lane_shards=L)
+        else:
+            wave = -(-int(wave) // L) * L   # even lane split per shard
+        pipe = ShardedWavePipeline(wt.step_fn, mesh=self.mesh,
+                                   num_vertices=wt.num_vertices, wave=wave,
+                                   depth=depth, dist_counters=self._dist)
         return pipe, wt, wave
 
     # --------------------------------------------------------- observability
@@ -370,6 +535,16 @@ class TCQEngine:
         }
         if self.core_cache is not None:
             out["core_cache"] = self.core_cache.stats()
+        if self.mesh is not None:
+            out["distributed"] = {
+                "mesh": dict(zip(self.mesh.axis_names, self.mesh.shape)),
+                "devices": int(self.mesh.size),
+                "lane_shards": self._lane_shards,
+                "model_shards": self._model_shards,
+                "combine": self._combine,
+                "backend": self.mesh.backend,
+                **self._dist,
+            }
         return out
 
     def _cache_view(self, k: int, h: int, epoch: Optional[int] = None):

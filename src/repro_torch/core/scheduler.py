@@ -379,7 +379,7 @@ def autotune_wave(num_vertices: int, window_edges: int,
 # Dense psum payloads up to this many elements (V * W f32 degrees) are
 # cheaper than the extra all-gather latency of rs_ag on small problems;
 # beyond it the ~7x wire saving of reduce-scatter + 1-byte alive gather
-# wins.  (Kept for the sharded pipeline, ROADMAP A11.)
+# wins.  The sharded engine's ``combine="auto"`` picks with it.
 _COMBINE_DENSE_MAX = 1 << 16
 
 

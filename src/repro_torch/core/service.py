@@ -38,10 +38,17 @@ module owns that continuous loop:
   no barrier in between; tickets that don't fit the live pool are served
   by the next ``pump``.
 
-The serving loop is deliberately synchronous and single-device (one
-engine per card; the sharded pipeline is ROADMAP A11); ``poll`` callbacks
-are the seam where a real frontend — or the open and closed loops in
+The serving loop is deliberately synchronous; ``poll`` callbacks are the
+seam where a real frontend — or the open and closed loops in
 ``launch/serve.py`` — injects arrivals and edge ingestion mid-flight.
+
+* **On a mesh** (``mesh=``, ``core/distributed.py``) every rank runs this
+  same loop over the same inputs, and each pool peels through the
+  sharded pipeline.  Every clock read that steers the loop (deadlines,
+  timeouts, the frontends' arrivals and sheds) goes through
+  :meth:`TCQService.now`, which is rank 0's clock on every rank: ranks
+  that read their own clocks could take different decisions, and then
+  one would enter a collective the others never reach.
 """
 
 from __future__ import annotations
@@ -105,7 +112,7 @@ class TCQTicket:
     that lands later.  ``uts`` is the snapshot's unique-timestamp slice
     for the window (the schedule's column space), fixed at submit time.
 
-    ``deadline`` is an *absolute* ``time.perf_counter()`` instant (None =
+    ``deadline`` is an *absolute* ``TCQService.now()`` instant (None =
     best-effort); ``priority`` breaks deadline ties, lower first.  The
     pair drives both pool formation (EDF head-of-line) and in-pool lane
     claiming (:class:`~repro_torch.core.scheduler.QueryState`'s EDF key).
@@ -207,8 +214,11 @@ class TCQService:
         ``TCQEngine``).  On the card a kernel failure raises with or
         without it; with it the failure is also logged.
     mesh / combine:
-        The sharded pipeline is not ported (ROADMAP A11); either raises
-        ``NotImplementedError``.
+        Shard every pool over a ``launch.mesh.Mesh`` (see ``TCQEngine``);
+        the pool log then carries ``shard_occupancy`` and
+        ``collective_bytes``, and ``stats["distributed"]`` the mesh's
+        counters.  A journal on a mesh of several ranks is not supported
+        (``ValueError``): the ranks would write one directory together.
 
     Usage::
 
@@ -234,16 +244,19 @@ class TCQService:
                  mesh=None, combine: str = "auto",
                  wal_dir: Optional[str] = None, fsync: str = "batch",
                  wal=None):
-        if mesh is not None or combine != "auto":
-            raise NotImplementedError(
-                "TCQService(mesh=..., combine=...): the sharded pipeline "
-                "is not ported to the PyTorch service yet (ROADMAP A11)")
         if engine is None:
             if graph is None:
                 raise ValueError("need a graph or an engine")
             engine = TCQEngine(graph, device=device, use_kernel=use_kernel,
-                               resilience=resilience, cache=cache)
+                               resilience=resilience, cache=cache,
+                               mesh=mesh, combine=combine)
         self.engine = engine
+        mesh = engine.mesh
+        if mesh is not None and mesh.size > 1 and (wal is not None or
+                                                   wal_dir is not None):
+            raise ValueError("a write-ahead journal on a mesh of "
+                             f"{mesh.size} ranks is not supported")
+        self._clock = time.perf_counter if mesh is None else mesh.clock
         self.wave = wave
         self.depth = int(depth)
         self.cluster_gap = int(cluster_gap)
@@ -285,6 +298,12 @@ class TCQService:
             # initial graph is persisted at the active sequence number —
             # every later journal record lands in a segment >= it
             self._write_snapshot_file(self.wal.active_seq)
+
+    def now(self) -> float:
+        """The service's clock, ``time.perf_counter()``; on a mesh, rank
+        0's reading on every rank (``Mesh.clock``), so that every clock
+        decision is the same on every rank."""
+        return self._clock()
 
     def _journal(self, kind: str, meta: Dict, arrays=None) -> None:
         """Append one write-ahead record (no-op without a journal, and
@@ -353,7 +372,7 @@ class TCQService:
         results — once it passes) — the ``TCQRequestStream`` format.
         """
         r = dict(request)
-        now = time.perf_counter()
+        now = self.now()
         g = self.engine.graph
         uts = g.unique_ts
         uts = uts[(uts >= int(r["ts"])) & (uts <= int(r["te"]))]
@@ -411,7 +430,7 @@ class TCQService:
         if tk.done:
             return False
         self._journal("cancel", {"id": int(tk.id), "status": str(status)})
-        now = time.perf_counter()
+        now = self.now()
         tk.status = status
         if tk.state is not None:
             tk.state.cancel()           # pool frees its lanes mid-flight
@@ -434,7 +453,7 @@ class TCQService:
         """Time out every *queued* ticket past its deadline (running
         tickets are swept by the live pool's admit hook).  Returns the
         newly timed-out tickets."""
-        now = time.perf_counter() if now is None else now
+        now = self.now() if now is None else now
         hit = [tk for tk in self._pending if tk.expired(now)]
         for tk in hit:
             self.cancel(tk, status="timeout")
@@ -459,7 +478,7 @@ class TCQService:
     def _make_state(self, tk: TCQTicket) -> QueryState:
         st = self._build_state(tk)
         tk.status = "running"
-        tk.admit_s = time.perf_counter()
+        tk.admit_s = self.now()
         return st
 
     def _try_cache_resolve(self, tk: TCQTicket, now: float) -> bool:
@@ -474,7 +493,7 @@ class TCQService:
             return False
         tk.status = "running"
         tk.admit_s = now
-        self._finalize(tk, self.engine.num_vertices, time.perf_counter())
+        self._finalize(tk, self.engine.num_vertices, self.now())
         return True
 
     def _retire(self, tk: TCQTicket) -> None:
@@ -521,7 +540,7 @@ class TCQService:
             # admission-time lookup: tickets served entirely by the TTI
             # cache resolve here — they never join a pool, never widen a
             # cluster's union window, and never touch the device
-            now = time.perf_counter()
+            now = self.now()
             for tk in [t for t in self._pending if t.state is None]:
                 if self._try_cache_resolve(tk, now):
                     self._pending.remove(tk)
@@ -551,12 +570,12 @@ class TCQService:
             num_queries=len(members), wave=self.wave, depth=self.depth)
         states = [self._make_state(tk) for tk in members]
         pool_stats = QueryStats()
-        t0 = time.perf_counter()
+        t0 = self.now()
 
         def admit() -> List[QueryState]:
             if poll is not None:
                 poll(self)
-            now = time.perf_counter()
+            now = self.now()
             self.expire(now)
             for tk in members:
                 # deadline sweep over *running* members: flag the state so
@@ -586,7 +605,7 @@ class TCQService:
             return newly
 
         pipe.run_pool(states, pool_stats, admit=admit)
-        done_s = time.perf_counter()
+        done_s = self.now()
         for tk in members:
             if tk.done_s is None:
                 self._finalize(tk, wt.num_vertices, done_s)
@@ -613,6 +632,11 @@ class TCQService:
             "backend": getattr(wt.step_fn, "backend", "?"),
             "wall_s": done_s - t0,
         })
+        if pool_stats.shard_occupancy is not None:
+            self.pool_log[-1]["shard_occupancy"] = \
+                pool_stats.shard_occupancy
+            self.pool_log[-1]["collective_bytes"] = \
+                pool_stats.collective_bytes
         return members + fresh
 
     def run_until_idle(self, poll: Optional[Callable] = None
@@ -694,7 +718,7 @@ class TCQService:
         never having stopped (resolved tickets are the caller's to
         persist — they are not part of service state).
         """
-        now = time.perf_counter()
+        now = self.now()
         live = [tk for tk in self._inflight if not tk.done]
         graphs: Dict[int, Dict] = {self.engine.epoch:
                                    self.engine.graph.state_dict()}
@@ -745,7 +769,7 @@ class TCQService:
         for e in epochs[1:]:
             svc.engine.update_graph(graphs[e])
             svc.engine.rebase_epoch(e)
-        now = time.perf_counter()
+        now = svc.now()
         for rec in snap["tickets"]:
             ep = int(rec["epoch"])
             g = graphs[ep]

@@ -19,10 +19,23 @@ p95 / p99 submit-to-completion latency, sustained qps, mean pool
 occupancy, and the epoch count ingested while serving.
 
 ``--device`` defaults to ``cuda`` (the service raises without a card);
-``--device cpu`` runs the plain versions of the kernels.  The JAX
-package's sharded launcher (``serve_distributed``, ``--distributed``,
-``--fake-devices``, ``--model-shards``, ``--controllers``) waits for the
-sharded pipeline (ROADMAP A11).
+``--device cpu`` runs the plain versions of the kernels.
+
+``--distributed`` serves through the sharded pipeline
+(:func:`serve_distributed`, ``--model-shards``, ``--combine``,
+``--controllers``) on a mesh of every rank of the world:
+
+* under ``torchrun --nproc-per-node=<cards>``, one rank per card over
+  NCCL; with no launcher, a world of one rank (the unit mesh);
+* ``--fake-devices N``: N gloo ranks spawned by this script, the
+  counterpart of XLA's host devices: on the CPU with ``--device cpu``,
+  or sharing one card through host memory with ``--device cuda``.
+
+Every rank serves the same traffic; rank 0 prints, and the ranks' tickets
+must agree.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --distributed --fake-devices 4 --model-shards 2
 """
 
 from __future__ import annotations
@@ -69,12 +82,12 @@ class Backpressure:
         self.shed = 0
         self.timeouts_swept = 0
         self._tokens = float(queue_cap)
-        self._last = time.perf_counter()
+        self._last = svc.now()
 
     def offer(self, request):
         """Admit ``request`` or shed it; returns the ticket or None."""
         self.offered += 1
-        now = time.perf_counter()
+        now = self.svc.now()     # rank 0's clock on a mesh
         if self.qps_ceiling > 0.0:
             self._tokens = min(float(self.queue_cap), self._tokens
                                + (now - self._last) * self.qps_ceiling)
@@ -259,6 +272,154 @@ def serve_stream(graph, requests, *, qps: float, ingest=None,
     return svc, served, wall
 
 
+def serve_distributed(graph, requests, *, mesh, combine="auto",
+                      controllers: int = 1, wave="auto", depth: int = 2,
+                      cache: bool = False, warm: bool = True):
+    """Multi-controller open-loop driver over the sharded engine.
+
+    ``controllers`` independent arrival processes (the open-loop request
+    list partitioned round-robin, each keeping its own arrival clock) are
+    interleaved into one pump loop: ``TCQService`` is single-writer, so
+    the controllers multiplex submissions rather than run threads.  Every
+    rank of ``mesh`` runs this same loop; arrivals are read off
+    ``TCQService.now`` (rank 0's clock on every rank), so every rank
+    admits the same requests at the same pump.
+
+    Returns ``(svc, served, report)``; ``report`` carries aggregate and
+    per-controller qps / p50 / p95 / p99 plus the mesh shape, combine,
+    per-shard lane occupancy and combine-collective bytes.
+    """
+    from repro_torch.core import TCQService
+
+    svc = TCQService(graph, wave=wave, depth=depth, retain_snapshots=False,
+                     cache=cache, mesh=mesh, combine=combine)
+    if warm and requests:
+        r0 = requests[0]
+        svc.submit({k: r0[k] for k in ("k", "ts", "te")})
+        svc.run_until_idle()
+        svc.completed.clear()
+        svc.pool_log.clear()
+    n = max(1, int(controllers))
+    lanes = [sorted((r for j, r in enumerate(requests) if j % n == c),
+                    key=lambda r: r["arrive_s"]) for c in range(n)]
+    owner = {}
+    state = {"i": [0] * n, "t0": svc.now()}
+
+    def poll(s):
+        now = s.now() - state["t0"]
+        for c in range(n):
+            q, i = lanes[c], state["i"][c]
+            while i < len(q) and q[i]["arrive_s"] <= now:
+                tk = s.submit(q[i])
+                owner[tk.id] = c
+                i += 1
+            state["i"][c] = i
+
+    served = []
+    while any(state["i"][c] < len(lanes[c]) for c in range(n)) or svc.pending:
+        served.extend(svc.run_until_idle(poll))
+        nxt = min((lanes[c][state["i"][c]]["arrive_s"]
+                   for c in range(n) if state["i"][c] < len(lanes[c])),
+                  default=None)
+        if nxt is not None:
+            gap = nxt - (svc.now() - state["t0"])
+            if gap > 0:
+                time.sleep(min(gap, 0.05))
+    wall = svc.now() - state["t0"]
+
+    def _pcts(tks):
+        lat = (np.array([tk.latency_s for tk in tks]) if tks
+               else np.array([0.0]))
+        return {"completed": len(tks),
+                "qps": len(tks) / wall if wall > 0 else 0.0,
+                "p50_ms": 1e3 * float(np.quantile(lat, .50)),
+                "p95_ms": 1e3 * float(np.quantile(lat, .95)),
+                "p99_ms": 1e3 * float(np.quantile(lat, .99))}
+
+    per = [dict(controller=c,
+                **_pcts([tk for tk in served if owner.get(tk.id) == c]))
+           for c in range(n)]
+    dist = svc.stats["distributed"]
+    occ = [p["shard_occupancy"] for p in svc.pool_log
+           if p.get("shard_occupancy")]
+    report = dict(_pcts(served))
+    report.update({
+        "controllers": per,
+        "wall_s": wall,
+        "mesh": dist["mesh"],
+        "combine": dist["combine"],
+        "backend": dist["backend"],
+        "collective_bytes": dist["collective_bytes"],
+        "shard_occupancy": ([float(x) for x in np.mean(occ, axis=0)]
+                            if occ else []),
+    })
+    return svc, served, report
+
+
+def tickets_digest(tickets) -> str:
+    """sha256 over every ticket's id, status and cores (TTI, vertices,
+    edge count): equal digests mean equal answers."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for tk in sorted(tickets, key=lambda tk: tk.id):
+        cores = sorted((key, c.vertices.tolist(), c.n_edges)
+                       for key, c in tk.result.by_tti().items())
+        h.update(repr((tk.id, tk.status, cores)).encode())
+    return h.hexdigest()
+
+
+def _distributed_run(args: dict, mesh=None) -> dict:
+    """One rank of ``--distributed``: the graph and requests ``main``
+    would serve, through :func:`serve_distributed`.  Returns the report
+    and the tickets' digest.  Run in each spawned rank of
+    ``--fake-devices`` (which passes no mesh), or in-process."""
+    from repro_torch.data import TCQRequestStream
+    from repro_torch.graphs import powerlaw_temporal
+    from repro_torch.launch.mesh import Mesh
+
+    if mesh is None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        if world % args["model_shards"]:
+            raise ValueError(f"--model-shards {args['model_shards']} does "
+                             f"not divide {world} ranks")
+        mesh = Mesh((world // args["model_shards"], args["model_shards"]),
+                    device=args["device"])
+    g = powerlaw_temporal(args["vertices"], args["edges"], args["span"],
+                          seed=3)
+    lo, hi = g.span
+    reqs = list(TCQRequestStream(lo, hi, k=args["k"],
+                                 span=max(64, args["span"] // 20),
+                                 seed=0).open_loop(args["requests"],
+                                                   args["qps"]))
+    wave = args["wave"] if args["wave"] == "auto" else int(args["wave"])
+    svc, served, rep = serve_distributed(
+        g, reqs, mesh=mesh, combine=args["combine"],
+        controllers=args["controllers"], wave=wave, depth=args["depth"],
+        cache=not args["no_cache"])
+    return {"report": rep, "digest": tickets_digest(served),
+            "rank": mesh.rank}
+
+
+def _print_distributed(rep: dict) -> None:
+    print(f"[serve] distributed: {rep['completed']} requests in "
+          f"{rep['wall_s']:.2f}s ({rep['qps']:.2f} qps aggregate) on "
+          f"mesh {rep['mesh']} over {rep['backend']} "
+          f"(combine={rep['combine']})")
+    print(f"[serve] latency p50 {rep['p50_ms']:.1f} ms | "
+          f"p95 {rep['p95_ms']:.1f} ms | p99 {rep['p99_ms']:.1f} ms")
+    for c in rep["controllers"]:
+        print(f"[serve]   controller#{c['controller']}: "
+              f"{c['completed']} done, {c['qps']:.2f} qps, "
+              f"p50 {c['p50_ms']:.1f} / p95 {c['p95_ms']:.1f} / "
+              f"p99 {c['p99_ms']:.1f} ms")
+    occ = ", ".join(f"{x:.2f}" for x in rep["shard_occupancy"])
+    print(f"[serve] per-shard lane occupancy [{occ}], "
+          f"{rep['collective_bytes']} combine-collective bytes")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--vertices", type=int, default=2_000)
@@ -301,6 +462,21 @@ def main():
                     help="torch device of the service's engine: 'cuda' "
                          "(default; raises without a card) or 'cpu' (the "
                          "plain versions of the kernels)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="serve through the sharded pipeline on a mesh of "
+                         "every rank of the world")
+    ap.add_argument("--combine", default="auto",
+                    choices=["auto", "psum", "rs_ag"])
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help="--distributed: spawn N gloo ranks (on the CPU "
+                         "with --device cpu; sharing the card through host "
+                         "memory with --device cuda)")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="ranks along the model (edge-sharding) axis; the "
+                         "rest go to the lane axis")
+    ap.add_argument("--controllers", type=int, default=1,
+                    help="interleaved open-loop arrival processes in "
+                         "--distributed mode")
     ap.add_argument("--wal-dir", default=None,
                     help="write-ahead journal directory: every admission "
                          "and ingest batch is logged before it is applied; "
@@ -315,6 +491,34 @@ def main():
                          "on power failure only), 'off' leaves flushing "
                          "to the OS")
     args = ap.parse_args()
+
+    if args.distributed:
+        opts = {k: getattr(args, k) for k in (
+            "vertices", "edges", "span", "requests", "qps", "k", "wave",
+            "depth", "combine", "controllers", "model_shards", "no_cache",
+            "device")}
+        if args.fake_devices:
+            from repro_torch.launch.world import run_world
+
+            outs = run_world("repro_torch.launch.serve:_distributed_run",
+                             args.fake_devices, args=(opts,),
+                             backend="gloo", timeout_s=1800)
+        else:
+            from repro_torch.launch.mesh import make_host_mesh
+
+            mesh = make_host_mesh(args.model_shards, device=args.device)
+            outs = [_distributed_run(opts, mesh)]
+            if mesh.rank:
+                return
+        _print_distributed(outs[0]["report"])
+        digests = {o["digest"] for o in outs}
+        if len(digests) != 1:
+            raise SystemExit(f"[serve] ranks disagree: {len(digests)} "
+                             "different ticket digests")
+        print(f"[serve] {len(outs)} spawned ranks agree on every ticket "
+              f"(digest {outs[0]['digest'][:16]})" if len(outs) > 1 else
+              f"[serve] ticket digest {outs[0]['digest'][:16]}")
+        return
 
     from repro_torch.data import TCQRequestStream
     from repro_torch.graphs import EdgeStream, powerlaw_temporal

@@ -23,7 +23,7 @@ encoder-decoder and ``input_mode="embeds"`` backbones.  ``loss_fn`` is the
 causal LM loss the train step (``launch/steps.py::build_train_step``)
 differentiates; the parameters are frozen until ``requires_grad_(True)``,
 which the train step sets.  Sharding (``param_pspecs``, ``cache_pspecs``)
-waits for ROADMAP A11.
+waits for ROADMAP A11b.
 """
 
 from __future__ import annotations

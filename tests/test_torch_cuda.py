@@ -702,3 +702,95 @@ def test_recover_on_card(cuda, tmp_path):
     for tk in tks:
         assert _digest(redo[tk.id].result) == _digest(tk.result)
     rec.wal.close()
+
+
+# ----------------------------------------------- the sharded pipeline
+@pytest.fixture
+def nccl_unit_mesh(cuda, tmp_path):
+    """A world of one rank over NCCL on the card: the unit mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, init_world
+
+    init_world("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+               world_size=1, timeout_s=120)
+    try:
+        yield Mesh((1, 1), device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("use_kernel,combine", [(True, "psum"),
+                                                (False, "psum"),
+                                                (False, "rs_ag")])
+def test_unit_mesh_over_nccl_equals_plain_engine(nccl_unit_mesh, use_kernel,
+                                                 combine):
+    g = GRAPHS["powerlaw"]()
+    Ts, Te = g.span
+    reqs = [{"k": 2, "ts": Ts, "te": Te}, {"k": 3, "ts": Ts + 3, "te": Te},
+            {"k": 2, "ts": Ts + 5, "te": Te - 5, "h": 2}]
+    eng = TCQEngine(g, mesh=nccl_unit_mesh, use_kernel=use_kernel,
+                    combine=combine)
+    peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    got = eng.query_batch(reqs)
+    assert (peel.wave_peel.launches > 0) == use_kernel
+    assert (segdeg.banded_segsum.launches > 0) != use_kernel
+    want = TCQEngine(g, use_kernel=use_kernel).query_batch(reqs)
+    for a, b in zip(got, want):
+        assert _digest(a) == _digest(b)
+        assert (a.stats.device_steps, a.stats.peel_iters) == \
+            (b.stats.device_steps, b.stats.peel_iters)
+    d = eng.stats()["distributed"]
+    assert d["backend"] == "nccl" and d["collective_bytes"] == 0
+
+
+def test_gloo_mesh_without_a_device_computes_on_the_card(cuda, tmp_path):
+    """Gloo is how several ranks share the card; a gloo mesh that names no
+    device takes the card, and so does its engine."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, init_world
+
+    init_world("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+               world_size=1, timeout_s=120)
+    try:
+        mesh = Mesh((1, 1))
+        assert mesh.device.type == "cuda" and mesh.host_staged
+        eng = TCQEngine(GRAPHS["powerlaw"](), mesh=mesh)
+        assert eng.device == mesh.device
+    finally:
+        dist.destroy_process_group()
+
+
+def test_unit_mesh_kernel_that_declines_raises(nccl_unit_mesh, monkeypatch):
+    g = GRAPHS["powerlaw"]()
+    monkeypatch.setattr(peel, "max_vertices", lambda: 8)
+    eng = TCQEngine(g, mesh=nccl_unit_mesh)
+    with pytest.raises(ValueError, match="V <= 8"):
+        eng.query(3, *g.span, mode="wave")
+
+
+def test_gloo_world_sharing_the_card(cuda, monkeypatch):
+    """Two gloo ranks on cuda:0, their collectives through host memory:
+    (2, 1) on the kernel, (1, 2) on the composite over segdeg."""
+    import os
+
+    from repro_torch.launch.world import run_world
+
+    root = str(Path(__file__).resolve().parents[1])
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    g = GRAPHS["powerlaw"]()
+    Ts, Te = g.span
+    reqs = [{"k": 2, "ts": Ts, "te": Te}, {"k": 3, "ts": Ts + 3, "te": Te}]
+    want = [chip_smoke.digest(r)
+            for r in TCQEngine(g).query_batch(reqs)]
+    outs = run_world("chip_smoke:mesh_rank", 2, args=(
+        g.state_dict(), reqs, (((2, 1), "psum"), ((1, 2), "rs_ag")),
+        "cuda:0"), backend="gloo", timeout_s=300)
+    for o in outs:
+        for key, kernel in (("2x1-psum", "wave_peel"),
+                            ("1x2-rs_ag", "segdeg")):
+            r = o[key]
+            assert r["host_staged"] and r["cores"] == want, key
+            assert r["launches"][kernel] > 0, key
+            assert r["collective_bytes"] == r["want_bytes"], key

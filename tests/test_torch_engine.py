@@ -183,9 +183,19 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize("option,value,item", [
     ("mesh", object(), "A11"), ("combine", "psum", "A11")])
 def test_options_not_ported_raise(option, value, item):
+    """The sharded pipeline (ROADMAP A11) is ported: a mesh must be a
+    ``launch.mesh.Mesh`` (tests/test_torch_distributed.py drives real
+    ones), and ``combine`` without a mesh is accepted and unused, as in
+    the JAX package."""
     g = TemporalGraph.from_state(planted_cores(seed=1).state_dict())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TCQEngine(g, device="cpu", **{option: value})
+    if option == "mesh":
+        with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+            TCQEngine(g, device="cpu", **{option: value})
+    else:
+        eng = TCQEngine(g, device="cpu", **{option: value})
+        assert eng.mesh is None and "distributed" not in eng.stats()
+    with pytest.raises(ValueError, match="combine"):
+        TCQEngine(g, device="cpu", combine="ring")
 
 
 def _jax_edge_degree(tel, ea, h, *, num_vertices):
@@ -270,8 +280,13 @@ def test_degree_fn_engine_options_not_ported_raise(option, value):
     from repro_torch.core.tcd import degrees
 
     g = TemporalGraph.from_state(planted_cores(seed=1).state_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TCQEngine(g, degrees, device="cpu", **{option: value})
+    if option == "mesh":        # a mesh must be a launch.mesh.Mesh
+        with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+            TCQEngine(g, degrees, device="cpu", **{option: value})
+    else:                       # no mesh: combine is accepted and unused
+        eng = TCQEngine(g, degrees, device="cpu", **{option: value})
+        assert len(eng.query(2, 1, 40, mode="wave")) == \
+            len(TCQEngine(g, degrees, device="cpu").query(2, 1, 40))
 
 
 def _port_sources():

@@ -709,9 +709,12 @@ def test_service_defaults_to_cuda_and_refuses_mesh():
             P.TCQEngine(g, cache=True)
         with pytest.raises(RuntimeError, match="CUDA"):
             P.TCQEngine(g, resilience=True)
-    for kw in ({"mesh": object()}, {"combine": "psum"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            P.TCQService(g, device="cpu", **kw)
+    # the sharded pipeline is ported (tests/test_torch_distributed.py):
+    # a mesh must be a launch.mesh.Mesh; combine without one is unused
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        P.TCQService(g, device="cpu", mesh=object())
+    assert "distributed" not in P.TCQService(g, device="cpu",
+                                             combine="psum").stats
     eng = P.TCQEngine(g, device="cpu", cache=True, resilience=True)
     assert isinstance(eng.core_cache, P.CoreCache)
     assert eng._resilience == P.ResilienceConfig()
