@@ -107,6 +107,28 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    kernel, (1, 2) with psum and rs_ag, (2, 2) with rs_ag, every rank
    equal to phase 3 and its collective bytes equal to the analytic
    model.  A rank that fails or outlives its timeout fails the phase;
+12. (run after phase 9) serves the LM families sharded
+   (``Transformer(cfg, mesh=)``, ``init_cache(..., mesh=)``, the sharded
+   ``prefill_step``/``serve_step``), each from phase 6's or 9's seed and
+   prompt: (a) phase 6's Jamba on the unit mesh over NCCL, 8 greedy
+   steps, its tokens equal to phase 6's bit for bit; (b) the same on
+   (data, model) = (1, 2), two gloo ranks sharing the card through host
+   memory (heads, FFN and Mamba channels split, the 32,768-position cache
+   split by sequence, ssm_scan on each rank's [2, 2,048, 131,072]); (c)
+   phase 9's Jamba with experts (2 layers, 8 experts a rank) on (1, 2);
+   (d) granite-moe, rwkv6, whisper-small and qwen2-vl (layers cut 80 ->
+   4) on (2, 2), four gloo ranks; 4 teacher-forced steps in (b) and (c),
+   2 in (d).  Each model of (b)-(d) is first served unsharded (its tokens
+   equal to phase 6's or 9's) and each rank is held to it, each step fed
+   the unsharded token: the same model in float32 (256 prompt tokens
+   into a 512-position cache, then 2 decode steps that write the second
+   half of the cache) gives the prefill's and every step's logits within
+   1e-4 relative; the bf16 run's logit error and differing tokens are
+   reported.  ssm_scan must launch once per Mamba layer and pass on every
+   rank, and a rank of a larger mesh must hand bytes to the collectives;
+   each rank reports its times, memory, collective bytes and the bytes of
+   its layout gathers (Mamba's in_proj).  ssm_scan is held to its plain
+   loop at the rank's shape;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -955,7 +977,8 @@ def phase_lm(dev) -> dict:
                                 at_decode["max_abs_err"]),
              "library_ms": None,
              "at_decode_shape": at_decode}
-    return {"by_path": by_path, "entry": entry}
+    return {"by_path": by_path, "entry": entry,
+            "tokens": torch.cat([tok0, toks], 1).cpu()}
 
 
 # ------------------------------------------- phase 7: TCQ serving path
@@ -1494,7 +1517,7 @@ def phase_families_smoke(dev) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch.steps import prefill_step
+    from repro_torch.launch.steps import decode_logits, prefill_step
     from repro_torch.models.transformer import (Transformer, init_cache,
                                                 init_params)
 
@@ -1515,17 +1538,11 @@ def phase_families_smoke(dev) -> None:
             at = {k: v.to(d) for k, v in prompt.items()}
             cache = init_cache(cfg, b, s_max, d, s_enc=s_enc)
             logits = [prefill_step(model, at, cache)[0]]
-            with torch.inference_mode():
-                for i in range(n):
-                    step = {"cache_index": s + i}
-                    for k in ("tokens", "embeds"):
-                        if k in forced:
-                            step[k] = forced[k][:, i:i + 1].to(d)
-                    if cfg.pos == "mrope":
-                        step["positions"] = torch.full(
-                            (3, b, 1), s + i, dtype=torch.int32, device=d)
-                    h, _, cache = model(step, mode="decode", cache=cache)
-                    logits.append(model.logits_from_hidden(h))
+            for i in range(n):
+                step = {k: forced[k][:, i:i + 1].to(d)
+                        for k in ("tokens", "embeds") if k in forced}
+                logits.append(decode_logits(
+                    model, cache, {**step, "cache_index": s + i})[0])
             last, cache = prefill_step(model, at, cache)
             tok = last.argmax(-1).to(torch.int32)
             toks = greedy(model, cache, tok, s,
@@ -1598,7 +1615,7 @@ def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
     from repro_torch.models.transformer import Transformer, init_cache
 
     on_card = dev.type == "cuda"
-    by_path, summary = {}, {}
+    by_path, summary, tokens = {}, {}, {}
     b = 2
     for name, arch, cuts, s, s_max, s_enc in runs:
         t_run = time.perf_counter()
@@ -1677,6 +1694,7 @@ def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
             "decode_ms_per_step": 1e3 * dec_s / n_dec,
             "peak_gib": peak / 2**30, "prefill_busy": busy_pre,
             "decode_busy": busy_dec}
+        tokens[name] = torch.cat([tok0, toks], 1).cpu()
         log(f"{name}: prefill {b} x {s} tokens"
             f"{f' (encoder {b} x {s_enc} frames)' if s_enc else ''} into a "
             f"{s_max}-position cache in {pre_s:.3f}s ({b * s / pre_s:.0f} "
@@ -1690,7 +1708,7 @@ def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
         if on_card:
             torch.cuda.empty_cache()
     log("families: " + json.dumps(summary))
-    return {"by_path": by_path}
+    return {"by_path": by_path, "tokens": tokens}
 
 
 # ------------------------------------------- phase 10: training on the card
@@ -2302,6 +2320,352 @@ def phase_mesh(dev, g, main_run: dict, capacity_qps: float) -> dict:
     return {"by_path": by_path, "times": times}
 
 
+# -------------------------------------------- phase 12: sharded LM serving
+# sub-phase -> (name, arch, cuts, mesh (data, model), prompt tokens, cache
+# positions, encoder frames, decode steps).  Each serves phase 6's or phase
+# 9's model from the same seed and prompt, sharded over the mesh.
+SHARDED_LM = {
+    "12a": (("jamba", JAMBA, {"n_layers": 8, "moe": None}, (1, 1), 2_048,
+             32_768, None, 8),),
+    # gloo through host memory moves ~0.36 GB/s a rank on one H100 host:
+    # a (1, 2) Jamba decode step, its 7 in_proj gathers (1.88 GB), takes
+    # ~5 s, so the gloo worlds' decode steps are cut, 8 -> 4 and 4 -> 2
+    "12b": (("jamba", JAMBA, {"n_layers": 8, "moe": None}, (1, 2), 2_048,
+             32_768, None, 4),),
+    "12c": (("jamba_moe", JAMBA, {"n_layers": 2}, (1, 2), 2_048, 32_768,
+             None, 4),),
+    # qwen2-vl's layers cut 80 -> 4 for time (phase 9 serves 16, so its
+    # unsharded reference is served here)
+    "12d": (("granite_moe", "granite-moe-1b-a400m", {}, (2, 2), 2_048,
+             32_768, None, 2),
+            ("rwkv6", "rwkv6-1.6b", {}, (2, 2), 2_048, 32_768, None, 2),
+            ("whisper", "whisper-small", {}, (2, 2), 64, 448, 1_500, 2),
+            ("qwen2_vl_4", "qwen2-vl-72b", {"n_layers": 4}, (2, 2), 2_048,
+             32_768, None, 2)),
+}
+# each model of a sharded sub-phase is also served in float32: at most 256
+# prompt tokens into a cache of twice that, then 2 decode steps, so that on
+# a cache split by sequence the steps write the second rank's block and
+# attend across both: the check of the sharded arithmetic, prefill and
+# decode, which bf16 rounding hides (``hold_sharded``)
+F32_PROMPT, F32_STEPS = 256, 2
+
+
+def f32_twin(case) -> tuple:
+    name, arch, cuts, shape, s, _, s_enc, _ = case
+    p = min(s, F32_PROMPT)
+    return (name + "_f32", arch, {**cuts, "dtype": "float32"}, shape, p,
+            2 * p, s_enc, F32_STEPS)
+
+
+def serve_case(case, mesh=None, dev=None, forced=None) -> dict:
+    """One config of ``SHARDED_LM`` served through ``prefill_step`` and
+    ``serve_step``: on ``mesh`` (sharded), else unsharded on ``dev``.
+    Seeded weights drawn on the card (one full leaf at a time on a mesh),
+    phase 9's prompt and feeds (``default_rng(17)``), a warm-up, then the
+    prefill and the greedy steps, each with the launch counters zeroed
+    before it and read after it.  With ``forced`` (the unsharded run's
+    tokens) the steps are teacher-forced: each is fed the unsharded run's
+    token, and the warm-up is a 64-token prefill.  A float32 model steps
+    through ``decode_logits`` (``serve_step``'s forward, with its logits)
+    and records each step's logits.  Returns plain values: tokens (the
+    prefill's greedy token, then each step's), the prefill's last logits
+    and the steps' (the vocabulary, not its padding), times,
+    launches, the bytes this rank handed to collectives and gathered for
+    layouts, and its device memory."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import decode_logits, prefill_step
+    from repro_torch.models.transformer import Transformer, init_cache
+
+    name, arch, cuts, shape, s, s_max, s_enc, n_dec = case
+    cfg = (get_config(arch) if isinstance(arch, str) else arch).scaled(
+        **cuts)                       # (a config object: a CPU rehearsal)
+    dev = mesh.device if mesh is not None else torch.device(dev)
+    on_card = dev.type == "cuda"
+    b = 2
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=None if mesh is not None else dev, mesh=mesh)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(17)
+    prompt = family_batch(cfg, b, s, s_enc, rng, dev)
+    feeds = decode_inputs(cfg, b, 32, rng, dev)[:n_dec]
+    cache = init_cache(cfg, b, s_max, None if mesh is not None else dev,
+                       s_enc=s_enc, mesh=mesh)
+
+    def prefill():
+        return prefill_step(model, prompt, cache)[0]
+
+    def first_token(last):
+        return last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+    def logit_steps(tok, ref):
+        """decode_logits from ``tok``, step i fed ``ref[:, i]`` where given,
+        else the last step's argmax: (tokens, each step's logits)."""
+        toks, logits = [], []
+        for i in range(n_dec):
+            x = ref[:, i:i + 1] if ref is not None else tok
+            step = {"tokens": x} if feeds[i] is None else {"embeds": feeds[i]}
+            out, _ = decode_logits(model, cache, {**step,
+                                                  "cache_index": s + i})
+            tok = first_token(out)
+            toks.append(tok)
+            logits.append(out[:, -1, :cfg.vocab].float().cpu())
+        return torch.cat(toks, 1), logits
+
+    if forced is None:                                       # warm-up
+        tok = first_token(prefill())
+        if n_dec:
+            greedy(model, cache, tok, s, feeds[:2])
+    else:      # a short prefill: the first calls' set-up
+        w = min(s, 64)
+        prefill_step(model, {k: v[:, :, :w] if k == "positions" and
+                             v.dim() == 3 else v[:, :w] if k != "enc_embeds"
+                             else v for k, v in prompt.items()}, cache)
+    if mesh is not None:
+        for k in mesh.sent_bytes:
+            mesh.sent_bytes[k] = 0
+        mesh.layout_bytes = 0
+    last, pre_s, n_pre = run_path(prefill)
+    sent_pre = dict(mesh.sent_bytes) if mesh is not None else {}
+    layout_pre = mesh.layout_bytes if mesh is not None else 0
+    tok0 = first_token(last)
+    ref = (torch.tensor(forced, dtype=torch.int32, device=dev)
+           if forced is not None else None)
+    step_logits = None
+    if cfg.dtype == "float32":
+        (toks, step_logits), dec_s, n_dec_run = run_path(
+            lambda: logit_steps(tok0, ref))
+    elif ref is not None:       # each step fed the unsharded run's token
+        toks, dec_s, n_dec_run = run_path(lambda: torch.cat([
+            greedy(model, cache, ref[:, i:i + 1], s + i, feeds[i:i + 1])
+            for i in range(n_dec)], 1))
+    else:
+        toks, dec_s, n_dec_run = run_path(
+            lambda: greedy(model, cache, tok0, s, feeds))
+    out = {
+        "name": name, "rank": mesh.rank if mesh is not None else 0,
+        "backend": mesh.backend if mesh is not None else None,
+        "host_staged": mesh is not None and mesh.host_staged,
+        "params": sum(p.numel() for p in model.parameters()),
+        "n_mamba": sum(sp.mixer == "mamba" for sp in cfg.layer_specs()),
+        "tokens": torch.cat([tok0, toks], 1).cpu().tolist(),
+        "dtype": cfg.dtype,
+        "last": last[:, -1, :cfg.vocab].float().cpu(),
+        "step_logits": step_logits,
+        "init_s": init_s, "prefill_s": pre_s, "decode_s": dec_s,
+        "prefill_tokens": b * s, "n_dec": n_dec,
+        "launches_prefill": n_pre, "launches_decode": n_dec_run,
+        "sent_prefill": sent_pre,
+        "sent": dict(mesh.sent_bytes) if mesh is not None else {},
+        "layout_prefill": layout_pre,
+        "layout": mesh.layout_bytes if mesh is not None else 0,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if on_card else 0,
+        "resident_bytes": torch.cuda.memory_allocated(dev) if on_card else 0,
+    }
+    del model, cache, prompt, feeds, last, toks
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_rank(cases, device: str, forced=None) -> list:
+    """One rank of a gloo world on the card (``launch/world.py``): each
+    case of ``cases`` served on its mesh, one model at a time, teacher-
+    forced with ``forced[i]`` first where given."""
+    from repro_torch.launch.mesh import Mesh
+
+    forced = forced or [None] * len(cases)
+    return [serve_case(c, Mesh(c[3], device=device), forced=f)
+            for c, f in zip(cases, forced)]
+
+
+# a float32 sharded run's logits against the unsharded one's, the
+# prefill's and each teacher-forced decode step's: within 1e-4 relative
+# (the CPU tests' float32 tolerance).  bfloat16 runs get no bound: their
+# partial sums round differently, RWKV's 24 layers carry that to 12% of
+# the logits (PERF.md §6), and a greedy token can follow the rounding
+# where the top two logits are within a few bf16 steps
+SHARD_F32_REL = 1e-4
+
+
+def hold_sharded(sub: str, name: str, p: dict, ref: dict) -> dict:
+    """One rank's run against the unsharded run of the same model, each
+    step fed the unsharded run's token.  In float32 the prefill's last
+    logits and every decode step's are held within ``SHARD_F32_REL``
+    relative; in bfloat16 their error and the steps whose greedy token
+    differs are reported.  Returns the errors (prefill first) and the
+    (step, row) of each differing token."""
+    import torch
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    errs = [rel(p["last"], ref["last"])]
+    if p["dtype"] == "float32":
+        check(len(p["step_logits"]) == len(ref["step_logits"]) == p["n_dec"]
+              >= F32_STEPS, f"{sub} {name}: rank {p['rank']} has "
+              f"{len(p['step_logits'])} float32 decode steps, want "
+              f"{p['n_dec']} >= {F32_STEPS}")
+        errs += [rel(a, b) for a, b in zip(p["step_logits"],
+                                           ref["step_logits"])]
+        check(all(bool(torch.isfinite(x).all()) for x in p["step_logits"])
+              and max(errs) <= SHARD_F32_REL,
+              f"{sub} {name}: rank {p['rank']} float32 logits relative "
+              f"errors (prefill, then each decode step) {errs} exceed "
+              f"{SHARD_F32_REL}")
+    flips = [(j, row) for row, (got, want) in enumerate(
+        zip(p["tokens"], ref["tokens"])) for j, (x, y) in enumerate(
+        zip(got, want)) if x != y]
+    return {"logits_rel_err": errs, "token_flips": flips}
+
+
+def phase_sharded_lm(dev, want: dict) -> dict:
+    """Phase 12: every LM family served sharded.  12a phase 6's Jamba on
+    the unit mesh over NCCL; 12b the same on (1, 2), two gloo ranks
+    sharing the card; 12c phase 9's Jamba with experts on (1, 2); 12d
+    granite-moe, rwkv6, whisper-small and qwen2-vl (4 layers) on (2, 2),
+    four gloo ranks.  ``want[name]`` holds phase 6's and 9's tokens.
+    12a must give them bit for bit.  For 12b-12d each model is first
+    served unsharded here (its tokens must equal phase 6's or 9's; qwen2-vl
+    at 4 layers has none) and every rank is held to that run: its float32
+    twin's prefill and decode logits within ``SHARD_F32_REL``, its bf16
+    tokens reported (``hold_sharded``).  ssm_scan must launch once per Mamba layer and
+    pass on every rank (on its channel shard), and a rank of a larger
+    mesh must hand bytes to the collectives."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, init_world
+    from repro_torch.launch.world import run_world
+
+    t12 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    by_path, summary, refs = {}, {}, {}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    device = "cuda:0" if on_card else "cpu"
+    for sub, cases in SHARDED_LM.items():
+        t_sub = time.perf_counter()
+        if cases[0][3] != (1, 1):
+            cases = cases + tuple(f32_twin(c) for c in cases)
+        if on_card:
+            torch.cuda.empty_cache()
+        world = cases[0][3][0] * cases[0][3][1]
+        if world == 1:
+            rdzv = Path(tempfile.mkdtemp(prefix="lm-", dir=ROOT / "build"))
+            init_world("nccl" if on_card else "gloo",
+                       init_method=f"file://{rdzv}/rendezvous", rank=0,
+                       world_size=1, timeout_s=300)
+            try:
+                outs = [[serve_case(c, Mesh(c[3], device=dev))
+                         for c in cases]]
+            finally:
+                dist.destroy_process_group()
+                shutil.rmtree(rdzv, ignore_errors=True)
+        else:
+            for c in cases:
+                if c[0] in refs:
+                    continue
+                t0 = time.perf_counter()
+                refs[c[0]] = r = serve_case(c, dev=dev)
+                if c[0] in want:
+                    check(r["tokens"] == [row[:c[7] + 1]
+                                          for row in want[c[0]]],
+                          f"{sub} {c[0]}: the unsharded run's tokens "
+                          f"{r['tokens']} differ from the earlier phase's")
+                log(f"{sub} {c[0]}: served unsharded ({c[2] or 'no cuts'})"
+                    f" in {time.perf_counter() - t0:.1f}s, tokens "
+                    f"{r['tokens']}{' (= phase 6/9)' if c[0] in want else ''}")
+            outs = run_world("chip_smoke:lm_rank", world,
+                             args=(cases, device,
+                                   [refs[c[0]]["tokens"] for c in cases]),
+                             backend="gloo", timeout_s=900)
+        for i, c in enumerate(cases):
+            name, shape = c[0], c[3]
+            per = [o[i] for o in outs]
+            for p in per:
+                log(f"{sub} {name} on {dict(zip(('data', 'model'), shape))} "
+                    f"rank {p['rank']} ({p['backend']}"
+                    f"{', host-staged' if p['host_staged'] else ''}, "
+                    f"{p['dtype']}): {p['params'] / 1e9:.3f} B parameters "
+                    f"held, drawn in {p['init_s']:.1f}s; prefill "
+                    f"{p['prefill_tokens']} tokens in {p['prefill_s']:.3f}s "
+                    f"({p['prefill_tokens'] / p['prefill_s']:.0f} tokens/s),"
+                    f" {c[7]} greedy steps at "
+                    f"{1e3 * p['decode_s'] / max(1, c[7]):.2f} ms a step; "
+                    f"tokens {p['tokens']}; bytes to the collectives "
+                    f"{json.dumps(p['sent'])} (prefill "
+                    f"{json.dumps(p['sent_prefill'])}); layout gathers "
+                    f"{p['layout']} B (prefill {p['layout_prefill']} B); "
+                    f"device memory resident {p['resident_bytes']} B, peak "
+                    f"{p['peak_bytes']} B; launches prefill "
+                    f"{json.dumps(p['launches_prefill'])}, decode "
+                    f"{json.dumps(p['launches_decode'])}")
+                if world == 1:
+                    ref = [row[:c[7] + 1] for row in want[name]]
+                    check(p["tokens"] == ref,
+                          f"{sub} {name}: tokens {p['tokens']} != phase "
+                          f"6's {ref}")
+                else:
+                    log(f"{sub} {name} rank {p['rank']} against the "
+                        f"unsharded run: "
+                        f"{json.dumps(hold_sharded(sub, name, p, refs[name]))}")
+                n_m = p["n_mamba"]
+                for path, got, n in (("prefill", p["launches_prefill"], n_m),
+                                     ("decode", p["launches_decode"],
+                                      n_m * c[7])):
+                    if on_card:
+                        check(got == {"wave_peel": 0, "segdeg": 0,
+                                      "ssm_scan": n, "ssm_scan_bwd": 0},
+                              f"{sub} {name} {path}: rank {p['rank']} "
+                              f"launches {got}, want ssm_scan {n}")
+                check(world == 1 or sum(p["sent"].values()) > 0,
+                      f"{sub} {name}: rank {p['rank']} sent no bytes")
+            for path in ("prefill", "decode"):
+                by_path[f"sharded_{sub}_{name}_{path}"] = {
+                    k: sum(p[f"launches_{path}"][k] for p in per)
+                    for k in per[0][f"launches_{path}"]}
+            summary[f"{sub}_{name}"] = {
+                "mesh": shape, "prefill_s": max(p["prefill_s"] for p in per),
+                "decode_ms": max(1e3 * p["decode_s"] / max(1, c[7])
+                                 for p in per),
+                "peak_bytes": [p["peak_bytes"] for p in per],
+                "resident_bytes": [p["resident_bytes"] for p in per],
+                "sent": [p["sent"] for p in per],
+                "layout": [p["layout"] for p in per]}
+        log(f"{sub} took {time.perf_counter() - t_sub:.1f}s, process "
+            "start included")
+    at_shard = None
+    if on_card:             # the scan at a rank's shape on (1, 2)
+        g = torch.Generator(dev).manual_seed(5)
+        shp = (2, 2_048, 131_072)
+        la = -torch.rand(shp, generator=g, device=dev) * 0.1
+        bx = torch.randn(shp, generator=g, device=dev) * 0.1
+        s0 = torch.zeros((2, 131_072), device=dev)
+        at_shard = hold_scan(la, bx, s0, "12b rank", 10, 3)
+        del la, bx, s0
+        torch.cuda.empty_cache()
+    log("sharded LM: " + json.dumps(summary))
+    log(f"phase 12 took {time.perf_counter() - t12:.1f}s; launches by "
+        f"path: {json.dumps(by_path)}")
+    return {"by_path": by_path, "at_shard": at_shard}
+
+
 def main() -> int:
     try:
         import torch
@@ -2373,6 +2737,12 @@ def main() -> int:
     log(f"phase 9 took {time.perf_counter() - t9:.1f}s")
     done("phase 9 (LM families)")
     torch.cuda.empty_cache()
+    sharded = phase_sharded_lm(dev, {"jamba": lm["tokens"].tolist(),
+                                     **{k: v.tolist() for k, v in
+                                        fam["tokens"].items()}})
+    lm["entry"]["at_sharded_shape"] = sharded["at_shard"]
+    done("phase 12 (sharded LM serving)")
+    torch.cuda.empty_cache()
     t10 = time.perf_counter()
     train_smoke = phase_train_smoke(dev)
     trained = phase_train(dev)
@@ -2387,7 +2757,8 @@ def main() -> int:
     done("phase 10 (training)")
     by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
                **base["by_path"], **meshed["by_path"], **fam["by_path"],
-               **train_smoke, **trained["by_path"], **lifecycle["by_path"]}
+               **sharded["by_path"], **train_smoke, **trained["by_path"],
+               **lifecycle["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

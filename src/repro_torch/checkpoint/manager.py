@@ -17,7 +17,7 @@ tensors in place at once.  bfloat16 leaves are written as their 2-byte
 bits (numpy void ``V2``, as ``np.save`` stores JAX's bfloat16) with
 "bfloat16" in the manifest, and restored by that dtype.  (The JAX
 package's restore cannot read such a leaf back: ROADMAP C.)  Resharding
-onto another mesh (``reshard``) waits for ROADMAP A11b.
+onto another mesh (``reshard``) waits for ROADMAP A11c.
 """
 
 from __future__ import annotations

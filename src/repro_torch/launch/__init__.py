@@ -1,4 +1,5 @@
 """Launchers (PyTorch counterpart of ``repro.launch``): the LM
-substrate's serving and training steps and shape cells, the TCQ serving
-launcher, and the meshes of ranks (``mesh.py``, ``world.py``) the sharded
-TCQ pipeline runs on.  The LM side of sharding is ROADMAP A11b."""
+substrate's serving and training steps and shape cells (with their
+specs on a mesh), the TCQ serving launcher, and the meshes of ranks
+(``mesh.py``, ``world.py``) the sharded TCQ pipeline and the sharded LM
+serving run on.  Training on a mesh is ROADMAP A11c."""

@@ -1,5 +1,5 @@
-"""Meshes of ranks for the sharded TCQ pipeline (PyTorch counterpart of
-``repro.launch.mesh``).
+"""Meshes of ranks for the sharded TCQ pipeline and the sharded LM
+(PyTorch counterpart of ``repro.launch.mesh``).
 
 JAX runs one controller over a ``jax.sharding.Mesh`` of devices;
 ``torch.distributed`` runs one process per rank.  A :class:`Mesh` is this
@@ -7,7 +7,10 @@ rank's view of a ``DeviceMesh`` with axes ``("data", "model")`` or
 ``("pod", "data", "model")``: its coordinates, the process groups the TCQ
 pipeline reduces over (``model``: the edge shards of one lane group;
 ``lanes``: pod x data, the ranks holding one model shard), the device it
-computes on, and the collectives it needs.
+computes on, and the collectives it needs.  The LM's spec functions
+(``models/transformer.py::param_pspecs``, ``launch/shapes.py``) read only
+``axis_names`` and ``shape``, so a plain stand-in with those two fields
+serves them without a process group.
 
 The backend is always the caller's, never picked here:
 
@@ -127,6 +130,10 @@ class Mesh:
         # pipeline's analytic ``collective_bytes`` of the degree combine
         self.sent_bytes = {"all_reduce": 0, "all_gather": 0,
                            "reduce_scatter": 0}
+        # bytes of the full tensors the sharded LM assembled because a
+        # leaf's JAX layout does not match a local computation (GSPMD's
+        # gathers: Mamba's in_proj, a head-splitting column block, ...)
+        self.layout_bytes = 0
         self.shape = shape
         self.axis_names = axis_names
         from torch.distributed.device_mesh import DeviceMesh
@@ -136,13 +143,15 @@ class Mesh:
             torch.arange(self.size).reshape(shape),
             mesh_dim_names=axis_names)
         coords = np.unravel_index(self.rank, shape)
+        self.coords = {a: int(c) for a, c in zip(axis_names, coords)}
         self.model_shards = shape[-1]
         self.lane_shards = self.size // self.model_shards
         self.model_index = int(coords[-1])
         self.lane_index = int(np.ravel_multi_index(coords[:-1], shape[:-1]))
         self.model_group = self.device_mesh.get_group("model")
+        self.data_group = self.device_mesh.get_group("data")
         if len(shape) == 2:
-            self.lane_group = self.device_mesh.get_group("data")
+            self.lane_group = self.data_group
         else:
             # pod x data flattened: every rank joins the creation of every
             # lane group, in the same order
@@ -157,9 +166,40 @@ class Mesh:
         return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank "
                 f"{self.rank}, {self.backend} on {self.device})")
 
+    def group(self, axes):
+        """The process group over ``axes``: one axis name, or a tuple of
+        them (the dp axes, pod x data: the lane group)."""
+        if isinstance(axes, tuple):
+            if len(axes) == 1:
+                axes = axes[0]
+            elif axes == dp_axes(self):
+                return self.lane_group
+            else:
+                raise ValueError(f"no group over {axes}")
+        if axes == "model":
+            return self.model_group
+        if axes == "data":
+            return self.data_group
+        return self.device_mesh.get_group(axes)
+
     # ------------------------------------------------------- collectives
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         return (t.cpu() if self.host_staged else t).contiguous()
+
+    def gather_dim(self, t: torch.Tensor, group, dim: int) -> torch.Tensor:
+        """Concatenate every group member's ``t`` along ``dim``, in group
+        rank order, bit for bit in any dtype (16-bit floats and bools
+        travel as bytes: gloo moves neither 16-bit integers nor, in every
+        build, bfloat16)."""
+        if dist.get_world_size(group) == 1:
+            return t
+        x = t.movedim(dim, 0).contiguous()
+        if t.dtype in (torch.bfloat16, torch.float16, torch.bool):
+            out = self.all_gather(x.reshape(-1).view(torch.uint8), group)
+            out = out.view(t.dtype).reshape((-1,) + tuple(x.shape[1:]))
+        else:
+            out = self.all_gather(x, group)
+        return out.movedim(0, dim)
 
     def all_reduce(self, t: torch.Tensor, op, group=None) -> torch.Tensor:
         """Elementwise reduction of ``t`` over ``group`` (the world when
@@ -229,6 +269,15 @@ def mesh_shard_counts(mesh) -> Tuple[int, int]:
 def dp_axes(mesh) -> tuple:
     """Mesh axes carrying the batch dimension."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _axsize(mesh, axes) -> int:
+    """The number of ranks over ``axes`` (names of ``mesh``'s axes)."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
 
 
 def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl",

@@ -3,8 +3,12 @@ prefill a cache, then decode greedily.
 
 PyTorch counterparts of the inner ``step`` functions of
 ``repro.launch.steps.build_train_step``, ``build_prefill_step`` and
-``build_serve_step``, on one device and without a mesh.  They run on the
-model's device (CUDA unless the model was made elsewhere).  The train step
+``build_serve_step``.  They run on the model's device (CUDA unless the
+model was made elsewhere).  A model built on a mesh
+(``Transformer(cfg, mesh=)``, its cache from ``init_cache(..., mesh=)``)
+serves sharded: every rank passes the global batch, takes its rows
+(over the dp axes where the batch splits evenly and is > 1, as the JAX
+steps' ``_bspec``) and gets the global result back.  The train step
 updates the model's parameters in place, as the serving steps (under
 ``torch.inference_mode()``) update the cache in place, where the JAX steps
 return new (donated) trees.  The batches are the JAX package's
@@ -19,6 +23,8 @@ for an encoder-decoder model; "positions" [3, B, S] for M-RoPE; "labels"
     opt_state, metrics = step(model, opt_state, batch)
 
     cache = init_cache(cfg, batch=2, s_max=4096)
+    # sharded: model = Transformer(cfg, mesh=mesh)
+    #          cache = init_cache(cfg, 2, 4096, mesh=mesh)
     logits, cache = prefill_step(model, {"tokens": prompt}, cache)
     tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
     for i in range(prompt.shape[1], prompt.shape[1] + n_new):
@@ -30,6 +36,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import _axsize, dp_axes
+from repro_torch.models.sharding import TP
 from repro_torch.models.transformer import Transformer, loss_fn
 from repro_torch.optim import make_optimizer
 
@@ -116,25 +124,79 @@ def build_train_step(cfg, n_micro: int = 1, lr: float = 3e-4):
     return step, opt
 
 
+def _rows(model: Transformer, batch: dict):
+    """(this rank's rows of ``batch``, whether they are a block of it):
+    on a mesh, a block over the dp axes when the global batch is > 1 and
+    splits evenly over them, else every row (the JAX steps' ``_bspec``)."""
+    mesh = model.mesh
+    if mesh is None:
+        return batch, False
+    x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    b, n = x.shape[0], _axsize(mesh, dp_axes(mesh))
+    if b <= 1 or b % n or n == 1:
+        return batch, False
+    lo, hi = mesh.lane_index * (b // n), (mesh.lane_index + 1) * (b // n)
+
+    def rows(k, t):
+        if t.dim() == 0:
+            return t
+        if k == "positions" and t.dim() == 3:      # M-RoPE [3, B, S]
+            return t[:, lo:hi]
+        return t[lo:hi]
+
+    return {k: rows(k, t) if isinstance(t, torch.Tensor) else t
+            for k, t in batch.items()}, True
+
+
+def _global_rows(model: Transformer, t: torch.Tensor, split: bool):
+    return model.mesh.gather_dim(t, model.mesh.lane_group, 0) if split \
+        else t
+
+
+def vocab_argmax(logits: torch.Tensor, mesh=None, v0: int = 0
+                 ) -> torch.Tensor:
+    """Greedy ids over the last axis, ``logits`` being this rank's block
+    of the vocabulary (from id ``v0``) on ``mesh``: each block's (max,
+    first index), then the largest max with the lowest global index on
+    ties, as ``torch.argmax`` and ``jnp.argmax`` break them."""
+    idx = torch.argmax(logits, dim=-1)
+    tp = TP(mesh)
+    if tp.m == 1:
+        return idx
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    idx = idx + v0
+    vals, idxs = tp.gather(val[None], 0), tp.gather(idx[None], 0)
+    best = torch.argmax(vals.to(torch.float32), dim=0)   # the first block
+    return torch.gather(idxs, 0, best[None])[0]
+
+
+def _whole_vocab(model: Transformer, logits: torch.Tensor) -> torch.Tensor:
+    """``logits`` over the whole padded vocabulary: gathered over ``model``
+    where this rank holds a block of it."""
+    if logits.shape[-1] < model.cfg.padded_vocab:
+        logits = TP(model.mesh).gather(logits, -1)
+    return logits
+
+
 @torch.inference_mode()
 def prefill_step(model: Transformer, batch: dict, cache: dict):
     """Fill ``cache`` (zeroed first, as the JAX step starts from a zero
     cache) with the prompt from position 0.  Returns (last_logits
-    [B, 1, padded_vocab], cache)."""
+    [B, 1, padded_vocab], cache); on a mesh the logits are the global
+    ones, on every rank."""
     for sub in cache.values():
         for t in sub.values():
             t.zero_()
+    batch, split = _rows(model, batch)
     hidden, _, cache = model(batch, mode="prefill", cache=cache)
-    return model.logits_from_hidden(hidden[:, -1:, :]), cache
+    logits = _whole_vocab(model, model.logits_from_hidden(hidden[:, -1:, :]))
+    return _global_rows(model, logits, split), cache
 
 
-@torch.inference_mode()
-def serve_step(model: Transformer, cache: dict, batch: dict):
-    """One greedy decode token: ``batch["tokens"]`` [B, 1] (or "embeds"
-    [B, 1, d]) at position ``batch["cache_index"]``.  That is also its
-    position unless ``batch["positions"]`` is given, as the JAX decode
-    batch always has it: [B, 1], or [3, B, 1] for M-RoPE.  Returns
-    (next_token [B, 1] int32, cache)."""
+def _decode(model: Transformer, cache: dict, batch: dict):
+    """One decode forward of ``serve_step``'s batch: (this rank's logits
+    [b, 1, its vocabulary block], whether its rows are a block of the
+    batch, cache)."""
     if "positions" not in batch:
         x = batch["embeds"] if "embeds" in batch else batch["tokens"]
         shape = (x.shape[0], 1)
@@ -143,6 +205,30 @@ def serve_step(model: Transformer, cache: dict, batch: dict):
         batch = {**batch, "positions": torch.full(
             shape, int(batch["cache_index"]), dtype=torch.int32,
             device=x.device)}
+    batch, split = _rows(model, batch)
     hidden, _, cache = model(batch, mode="decode", cache=cache)
-    logits = model.logits_from_hidden(hidden)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return model.logits_from_hidden(hidden), split, cache
+
+
+@torch.inference_mode()
+def serve_step(model: Transformer, cache: dict, batch: dict):
+    """One greedy decode token: ``batch["tokens"]`` [B, 1] (or "embeds"
+    [B, 1, d]) at position ``batch["cache_index"]``.  That is also its
+    position unless ``batch["positions"]`` is given, as the JAX decode
+    batch always has it: [B, 1], or [3, B, 1] for M-RoPE.  Returns
+    (next_token [B, 1] int32, cache); on a mesh the global tokens, on
+    every rank (the argmax over the vocabulary blocks,
+    ``vocab_argmax``)."""
+    logits, split, cache = _decode(model, cache, batch)
+    tok = vocab_argmax(logits, model.mesh, model.vocab_offset(
+        logits.shape[-1])).to(torch.int32)
+    return _global_rows(model, tok, split), cache
+
+
+@torch.inference_mode()
+def decode_logits(model: Transformer, cache: dict, batch: dict):
+    """``serve_step``'s forward with its logits in place of the token:
+    (logits [B, 1, padded_vocab], cache); on a mesh the global logits, on
+    every rank.  Their argmax is ``serve_step``'s token."""
+    logits, split, cache = _decode(model, cache, batch)
+    return _global_rows(model, _whole_vocab(model, logits), split), cache

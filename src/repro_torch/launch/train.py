@@ -7,7 +7,7 @@ PyTorch counterpart of ``repro.launch.train`` on one device: CUDA unless
 ``--device`` names another.  ``--smoke`` trains the reduced config (the
 runnable path on a CPU); without it the full config, which only the
 smaller architectures fit on one card.  The JAX launcher's
-``--multi-pod`` mesh waits for the LM side of sharding (ROADMAP A11b).
+``--multi-pod`` mesh waits for training on a mesh (ROADMAP A11c).
 """
 
 from __future__ import annotations

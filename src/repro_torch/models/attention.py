@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.sharding import NO_TP, TP
 
 NEG_INF = -2.0e38
 
@@ -66,10 +67,13 @@ def _attend_dense(q, k, v, bias, scale, cap, scores_f32: bool = True):
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _attend_chunked(q, k, v, q_rank, k_rank, causal, window, scale, cap,
+def _attend_partial(q, k, v, q_rank, k_rank, causal, window, scale, cap,
                     chunk: int = 1024, k_valid=None):
     """Online softmax over KV chunks, O(S·chunk) memory for long prefill.
-    q_rank: [1, Sq]; k_rank: [1, Sk]; k_valid: [1, Sk] or None."""
+    q_rank: [1, Sq]; k_rank: [1, Sk]; k_valid: [1, Sk] or None.  Returns
+    the unnormalised state (m [B,KV,rep,Sq], l [B,KV,rep,Sq], acc
+    [B,KV,rep,Sq,hd]) in float32: the running max, the sum of exponentials
+    and the weighted values."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     kv = k.shape[2]
@@ -103,14 +107,60 @@ def _attend_chunked(q, k, v, q_rank, k_rank, causal, window, scale, cap,
         acc = acc * corr[..., None] + torch.einsum(
             "bkrqc,bckh->bkrqh", p, v[:, sl].to(f32))
         m = m_new
+    return m, l, acc
+
+
+def _normalised(l, acc, dtype):
+    """[B,Sq,H,hd] in ``dtype`` from an online-softmax state."""
+    b, kv, rep, sq, hd = acc.shape
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
-    return out.to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kv * rep, hd).to(dtype)
+
+
+def _attend_chunked(q, k, v, q_rank, k_rank, causal, window, scale, cap,
+                    chunk: int = 1024, k_valid=None):
+    """Online softmax over KV chunks (``_attend_partial``), normalised."""
+    _, l, acc = _attend_partial(q, k, v, q_rank, k_rank, causal, window,
+                                scale, cap, chunk, k_valid)
+    return _normalised(l, acc, q.dtype)
+
+
+def _kv_for_heads(k, v, k0: int, h0: int, h_loc: int, rep: int):
+    """Keys and values for q heads [h0, h0 + h_loc), from k/v holding kv
+    heads [k0, ...): a contiguous run of kv heads when the q heads cover
+    whole groups (or lie in one group), else one kv head per q head."""
+    if h0 % rep == 0 and h_loc % rep == 0:
+        a, n = h0 // rep - k0, h_loc // rep
+    elif rep % h_loc == 0 and h0 % h_loc == 0:
+        a, n = h0 // rep - k0, 1
+    else:
+        idx = torch.arange(h0, h0 + h_loc, device=k.device) // rep - k0
+        return k[:, :, idx], v[:, :, idx]
+    if a == 0 and n == k.shape[2]:
+        return k, v
+    return k[:, :, a:a + n], v[:, :, a:a + n]
+
+
+def _attend_split(tp: TP, q, k, v, q_rank, k_rank, k_valid, causal, window,
+                  scale, cap):
+    """Split-sequence attention: each model shard holds a block of the
+    keys; every rank attends all heads of ``q`` over its block, and the
+    partial (max, sum of exponentials, weighted values) of all blocks are
+    merged by log-sum-exp.  Returns [B,Sq,H,hd] in q's dtype."""
+    chunk = k.shape[1] if q.shape[1] == 1 else 1024
+    m, l, acc = _attend_partial(q, k, v, q_rank, k_rank, causal, window,
+                                scale, cap, chunk, k_valid)
+    m, l, acc = (tp.gather(t[None], 0) for t in (m, l, acc))
+    top = m.amax(0)
+    w = torch.exp(m - top)                          # [m, B,KV,rep,Sq]
+    return _normalised((l * w).sum(0), (acc * w[..., None]).sum(0),
+                       q.dtype)
 
 
 def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
               *, causal: bool = True, cache: Optional[dict] = None,
-              cache_index=None, kv_source: Optional[torch.Tensor] = None):
+              cache_index=None, kv_source: Optional[torch.Tensor] = None,
+              tp: TP = NO_TP):
     """Attention sublayer (projections + rope + attend + out-proj).
 
     Self-attention: cache {"k", "v"} [B, S_max, KV, hd] for prefill and
@@ -123,15 +173,35 @@ def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
     [B, S_enc, d]), written in place into ``cache`` {"xk", "xv"} when one
     is given (prefill); or, without ``kv_source``, read from that cache
     (decode).  No RoPE, every key visible.  Returns out [B, S, d].
+
+    On a mesh (``tp``): ``wq`` is column-parallel by heads, ``wk``/``wv``
+    replicated, ``wo`` row-parallel with a sum over ``model``; a rank's q
+    heads [r H/m, (r+1) H/m) read kv head j // (H/KV).  A column block
+    that splits a head is gathered first.  The cache is the rank's block:
+    split by kv heads (local attention), whole, or, with
+    ``tp.seq_split``, by sequence.  Then a prefill from position 0 writes
+    the rank's block of positions and attends its heads over the prompt;
+    any other call (decode) writes the new keys into the block that holds
+    them, gathers the q heads and merges every block's partial attention
+    (``_attend_split``).
     """
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     b, s, _ = x.shape
     scale = hd ** -0.5
+    rep = h // kvh
 
-    q = _split_heads(x @ p["wq"], h, hd)
+    if p["wq"].shape[1] < h * hd and h % tp.m:      # a block splits a head
+        p = dict(p, wq=tp.full(p["wq"], 1, h * hd),
+                 wo=tp.full(p["wo"], 0, h * hd))
+        if "bq" in p:
+            p["bq"] = tp.full(p["bq"], 0, h * hd)
+    h_loc = p["wq"].shape[1] // hd                  # this rank's q heads
+    h0 = tp.offset(h_loc, h)
+
+    q = _split_heads(x @ p["wq"], h_loc, hd)
     if "bq" in p:
-        q = q + p["bq"].reshape(1, 1, h, hd)
+        q = q + p["bq"].reshape(1, 1, h_loc, hd)
     cross = kv_source is not None or (cache is not None and "xk" in cache)
     if cross and kv_source is None:
         k, v = cache["xk"], cache["xv"]
@@ -147,21 +217,44 @@ def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
             k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     dev = x.device
+    k0 = 0                                # first kv head that k/v hold
+    split = False
+    n_keys = None                 # the keys the algorithm is chosen for
     if cross and cache is not None and kv_source is not None:
-        if tuple(cache["xk"].shape) != tuple(k.shape):
+        kv_loc = cache["xk"].shape[2]
+        c0 = tp.offset(kv_loc, kvh)
+        if tuple(cache["xk"].shape) != (b, k.shape[1], kv_loc, hd):
             raise ValueError(f"encoder keys {tuple(k.shape)} do not fit a "
                              f"cross cache of {tuple(cache['xk'].shape)}")
-        cache["xk"].copy_(k)
-        cache["xv"].copy_(v)
-    elif not cross and cache is not None:
-        if s > cache["k"].shape[1]:
-            raise ValueError(f"{s} tokens do not fit a cache of "
-                             f"{cache['k'].shape[1]}")
+        cache["xk"].copy_(k[:, :, c0:c0 + kv_loc])
+        cache["xv"].copy_(v[:, :, c0:c0 + kv_loc])
+    elif cross and cache is not None:
+        k0 = tp.offset(k.shape[2], kvh)
+    elif cache is not None:
+        s_loc, kv_loc = cache["k"].shape[1], cache["k"].shape[2]
+        s_max = s_loc * tp.m if tp.seq_split else s_loc
+        if s > s_max:
+            raise ValueError(f"{s} tokens do not fit a cache of {s_max}")
         ci = int(cache_index)
-        at = min(max(ci, 0), cache["k"].shape[1] - s)
-        cache["k"][:, at:at + s] = k.to(cache["k"].dtype)
-        cache["v"][:, at:at + s] = v.to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
+        at = min(max(ci, 0), s_max - s)
+        p0 = tp.r * s_loc if tp.seq_split else 0    # the block's position
+        lo, hi = max(at, p0), min(at + s, p0 + s_loc)
+        kc0 = tp.offset(kv_loc, kvh)
+        if lo < hi:
+            cache["k"][:, lo - p0:hi - p0] = k[:, lo - at:hi - at,
+                                               kc0:kc0 + kv_loc].to(
+                cache["k"].dtype)
+            cache["v"][:, lo - p0:hi - p0] = v[:, lo - at:hi - at,
+                                               kc0:kc0 + kv_loc].to(
+                cache["v"].dtype)
+        if not tp.seq_split:
+            k, v, k0 = cache["k"], cache["v"], kc0
+        elif s > 1 and ci == 0:
+            # a prefill from position 0: the prompt is every key there is;
+            # the same algorithm as over the whole cache (its tail masked)
+            cache, n_keys = None, s_max
+        else:
+            k, v, split = cache["k"], cache["v"], True
 
     # ---- batch-free sequence-rank masks ----
     sk = k.shape[1]
@@ -172,16 +265,25 @@ def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
         causal, window = False, None
     elif cache is not None:
         q_rank = (ci + torch.arange(s, dtype=torch.int32, device=dev))[None]
+        k_rank = k_rank + p0
         k_valid = k_rank <= ci + s - 1
     else:
         q_rank = torch.arange(s, dtype=torch.int32, device=dev)[None]
 
-    if sk > cfg.attn_chunk_threshold and s > 1:
-        out = _attend_chunked(q, k, v, q_rank, k_rank, causal, window,
-                              scale, cfg.attn_softcap, k_valid=k_valid)
+    if split:
+        qa = tp.gather(q, 2) if h_loc < h else q
+        out = _attend_split(tp, qa, k, v, q_rank, k_rank, k_valid, causal,
+                            window, scale, cfg.attn_softcap)[:, :,
+                                                             h0:h0 + h_loc]
     else:
-        bias = _mask_bias(q_rank, k_rank, causal, window, k_valid)
-        out = _attend_dense(q, k, v, bias, scale, cfg.attn_softcap,
-                            scores_f32=cfg.attn_scores_f32)
+        k, v = _kv_for_heads(k, v, k0, h0, h_loc, rep)
+        if (n_keys or sk) > cfg.attn_chunk_threshold and s > 1:
+            out = _attend_chunked(q, k, v, q_rank, k_rank, causal, window,
+                                  scale, cfg.attn_softcap, k_valid=k_valid)
+        else:
+            bias = _mask_bias(q_rank, k_rank, causal, window, k_valid)
+            out = _attend_dense(q, k, v, bias, scale, cfg.attn_softcap,
+                                scores_f32=cfg.attn_scores_f32)
 
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    out = out.reshape(b, s, h_loc * hd) @ p["wo"]
+    return tp.reduce(out, h_loc < h)

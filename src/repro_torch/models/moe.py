@@ -18,6 +18,12 @@ functions one for one:
 
 With ``cfg.moe_grouped_dispatch`` and B > 1 each batch element is its own
 routing group and ``aux`` is the mean over groups.
+
+Expert parallelism (``tp``, ``models/sharding.py``): a rank holds a
+contiguous block of the experts.  Every rank routes every token with the
+replicated router (the same gates, dispatch, capacity and aux), runs only
+its own experts' slots, adds their rows into [T, d] and sums the partial
+outputs over ``model``; the shared expert shards like the dense FFN.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from repro_torch.models.layers import activation
 from repro_torch.models.mlp import mlp
+from repro_torch.models.sharding import NO_TP, TP
 
 
 def _expert_ffn(we: dict, xe: torch.Tensor, cfg) -> torch.Tensor:
@@ -45,14 +52,21 @@ def capacity(tokens: int, cfg) -> int:
                             / m.num_experts)))
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+def moe_ffn(p: dict, x: torch.Tensor, cfg,
+            tp: TP = NO_TP) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d].  Returns (out [B, S, d], aux f32 scalar)."""
+    if not cfg.moe_grouped_dispatch and tp.batch_rows is not None:
+        # one routing group over the global batch: route every rank's rows
+        # (the capacity counts them all), keep this rank's
+        a0, a1 = tp.batch_rows
+        xg = tp.mesh.gather_dim(x, tp.mesh.lane_group, 0)
+        out, aux = _moe_tokens(p, xg, cfg, tp)
+        return out[a0:a1], aux
     if cfg.moe_grouped_dispatch and x.shape[0] > 1:
-        outs, auxs = zip(*(_moe_tokens(p, x[i:i + 1], cfg)
+        outs, auxs = zip(*(_moe_tokens(p, x[i:i + 1], cfg, tp)
                            for i in range(x.shape[0])))
         return torch.cat(outs, 0), torch.stack(auxs).mean()
-    return _moe_tokens(p, x, cfg)
+    return _moe_tokens(p, x, cfg, tp)
 
 
 def route(p: dict, xt: torch.Tensor, cfg):
@@ -86,8 +100,8 @@ def dispatch(choice: torch.Tensor, cap: int, n_experts: int):
     return slot, keep, st, order
 
 
-def _moe_tokens(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
-                                                         torch.Tensor]:
+def _moe_tokens(p: dict, x: torch.Tensor, cfg,
+                tp: TP = NO_TP) -> Tuple[torch.Tensor, torch.Tensor]:
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -108,14 +122,22 @@ def _moe_tokens(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
     src = torch.full((e * cap + 1,), t, dtype=torch.int64, device=x.device)
     src[slot] = st
     xz = torch.cat([xt, xt.new_zeros((1, d))])
-    xe = xz[src[:-1]].reshape(e, cap, d)
-    ye = _expert_ffn(p["experts"], xe, cfg).reshape(e * cap, d)
+    # this rank's experts [e0, e0 + e_loc) (all of them off a mesh)
+    e_loc = p["experts"]["wu"].shape[0]
+    e0 = tp.offset(e_loc, e)
+    rows = src[e0 * cap:(e0 + e_loc) * cap]
+    ye = _expert_ffn(p["experts"], xz[rows].reshape(e_loc, cap, d), cfg)
+    ye = ye.reshape(e_loc * cap, d)
+    if e_loc < e:       # other ranks' slots read zero rows
+        ye = torch.cat([ye.new_zeros((e0 * cap, d)), ye, ye.new_zeros(
+            ((e - e0 - e_loc) * cap, d))])
 
     # combine: each kept (token, k) pair reads its expert's row
     ye = torch.cat([ye, ye.new_zeros((1, d))])
     w = torch.where(keep, sg, torch.zeros_like(sg)).to(ye.dtype)
     out_flat = ye[slot] * w[:, None]
-    out = ye.new_zeros((t, d)).index_add_(0, st, out_flat)
+    out = tp.reduce(ye.new_zeros((t, d)).index_add_(0, st, out_flat),
+                    e_loc < e)
     if m.shared_expert:
-        out = out + mlp(p["shared"], xt, cfg)
+        out = out + mlp(p["shared"], xt, cfg, tp)
     return out.reshape(b, s, d), aux

@@ -13,6 +13,16 @@ before ``exp``, so every exponent that reaches ``exp`` is <= 0.  The
 chunks run in a Python loop carrying S in float32; the last chunk is
 padded.  Prefill uses chunk 64, a decode step chunk 1 (the exact
 recurrence).
+
+On a mesh (``tp``, ``models/sharding.py``) a rank holds a block of the
+heads: ``wr``/``wk``/``wv``/``wg``, ``w0``, ``dec_b``, ``ln_x`` ("qdim")
+and ``u`` ("heads") are local, its wkv state is its heads' (the group norm
+is per head), ``wo`` is row-parallel with a sum over ``model``, and the
+LoRA ``mix_a``/``dec_a`` and the shift state are replicated.  ``mix_b``'s
+column block would give each rank only its columns of the five mixed
+inputs, which every projection needs whole: it is gathered first.  Where
+the heads do not split over ``model`` but ``d`` does, every "qdim" leaf is
+gathered and the mix runs whole on each rank.
 """
 
 from __future__ import annotations
@@ -23,6 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import group_rmsnorm
+from repro_torch.models.sharding import NO_TP, TP
+
+# "qdim" leaves of the time mix and the dimension of their column block
+_QDIM = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "w0": 0, "dec_b": 1,
+         "ln_x": 0}
 
 
 def _ddlerp(p, x, prev):
@@ -69,12 +84,18 @@ def _chunk(S, rc, kc, vc, lw, u):
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, cfg, state: Tuple,
-                  chunk: int = 64):
-    """x: [B,S,d].  state: (wkv [B,H,hd,hd], shift [B,d]).
-    Returns (out [B,S,d], (wkv' in wkv's dtype, shift' [B,d]))."""
-    b, s, d = x.shape
+                  chunk: int = 64, tp: TP = NO_TP):
+    """x: [B,S,d].  state: (wkv [B,H,hd,hd] (the rank's heads on a mesh),
+    shift [B,d]).  Returns (out [B,S,d], (wkv' in wkv's dtype, shift'
+    [B,d]))."""
+    b, s, d_model = x.shape
     hd = cfg.rwkv.head_dim
-    h = d // hd
+    p = dict(p, mix_b=tp.full(p["mix_b"], 2, d_model))
+    if p["u"].shape[0] * hd == d_model and p["wr"].shape[1] < d_model:
+        p.update({k: tp.full(p[k], dim, d_model)
+                  for k, dim in _QDIM.items()})
+    h = p["u"].shape[0]
+    d = h * hd                                   # this rank's channels
     wkv0, shift = state
     prev = torch.cat([shift[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
     xr, xk, xv, xw, xg = _ddlerp(p, x, prev)
@@ -102,7 +123,7 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg, state: Tuple,
         ys.append(y)
     y = torch.cat(ys, 1)[:, :s]
     y = group_rmsnorm(y, p["ln_x"].reshape(h, hd)).reshape(b, s, d)
-    out = (y.to(x.dtype) * g) @ p["wo"]
+    out = tp.reduce((y.to(x.dtype) * g) @ p["wo"], d < d_model)
     return out, (S.to(wkv0.dtype), x[:, -1, :])
 
 

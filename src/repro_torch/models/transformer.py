@@ -22,8 +22,20 @@ the shared expert), Mamba hybrids with their experts, RWKV6, the whisper
 encoder-decoder and ``input_mode="embeds"`` backbones.  ``loss_fn`` is the
 causal LM loss the train step (``launch/steps.py::build_train_step``)
 differentiates; the parameters are frozen until ``requires_grad_(True)``,
-which the train step sets.  Sharding (``param_pspecs``, ``cache_pspecs``)
-waits for ROADMAP A11b.
+which the train step sets.
+
+Sharding: ``param_pspecs`` and ``cache_pspecs`` map each leaf's logical
+axes to mesh axes by ``SHARDING_RULES``, as the JAX functions do (the
+``embed`` rows over ``data``, FSDP; heads, FFN, experts, Mamba channels,
+vocabulary and the attention cache's sequence over ``model``).
+``Transformer(cfg, ..., mesh=)`` holds only its rank's blocks of them
+(``shard_tree``; ``unshard_tree`` gathers the full leaves back) and
+serves on them: each sub-layer's ``embed`` dimensions are gathered over
+``data`` before use, and the layers compute tensor- and expert-parallel
+over ``model`` (``models/sharding.py``).  Its forward takes the rank's
+rows of the batch and a cache from ``init_cache(..., mesh=)``; the steps
+(``launch/steps.py``) slice the rows and gather the results.  Training on
+a mesh is ROADMAP A11c.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ from repro_torch.models.layers import norm, softcap
 from repro_torch.models.mlp import mlp, rwkv_channel_mix
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.rwkv import rwkv_time_mix
+from repro_torch.models.sharding import (NO_TP, TP, block, gather_leaf,
+                                         mesh_coords, shard_slices)
 from repro_torch.models.ssm import mamba_mix
 
 
@@ -51,6 +65,29 @@ class P(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     init: str = "normal"
+
+
+# logical axis -> mesh axis (None = replicate).  "embed" rows are the FSDP
+# dimension; "model-ish" axes are tensor/expert parallel.
+SHARDING_RULES: Dict[Optional[str], Optional[str]] = {
+    "embed": "data",
+    "vocab": "model",
+    "qdim": "model",
+    # KV projections stay replicated across TP: GQA ratios (kv=1..8) rarely
+    # divide the model axis, and sharding flattened kv*head_dim would split
+    # head_dim itself.  They are tiny and still FSDP-sharded on "embed".
+    "kvdim": None,
+    "heads": "model",
+    "ff": "model",
+    "eff": None,
+    "experts": "model",
+    "mamba": "model",
+    "mamba2x": "model",
+    "seq": None,
+    "batch": "data",
+    "cache_seq": "model",
+    None: None,
+}
 
 
 # --------------------------------------------------------------------- specs
@@ -175,6 +212,12 @@ def _map(fn, tree):
             for k, v in tree.items()}
 
 
+def _map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over two nested dicts of one structure."""
+    return {k: _map2(fn, v, other[k]) if isinstance(v, dict)
+            else fn(v, other[k]) for k, v in tree.items()}
+
+
 def _groups(cfg) -> Tuple[int, list]:
     period = cfg.scan_period()
     return cfg.n_layers // period, cfg.layer_specs()[:period]
@@ -210,38 +253,125 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
     return t
 
 
+def _sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def param_pspecs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """Each parameter leaf's spec on ``mesh`` (anything with
+    ``axis_names`` and ``shape``): its logical axes through
+    ``SHARDING_RULES``, a dimension sharded only where it splits evenly
+    (and is > 1), and no mesh axis used twice in one leaf (a later use is
+    dropped), as ``repro.models.transformer.param_pspecs``."""
+    sizes = _sizes(mesh)
+
+    def spec(p: P):
+        parts = []
+        for dim, ax in zip(p.shape, p.axes):
+            mesh_ax = SHARDING_RULES.get(ax)
+            if mesh_ax is not None and dim % sizes[mesh_ax] == 0 and dim > 1:
+                parts.append(mesh_ax)
+            else:
+                parts.append(None)
+        seen, clean = set(), []
+        for a in parts:
+            if a is not None and a in seen:
+                clean.append(None)
+            else:
+                clean.append(a)
+                seen.add(a)
+        return tuple(clean)
+
+    return _map(spec, param_template(cfg))
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, batch: int, s_max: int,
+                 s_enc: Optional[int] = None) -> Dict[str, Any]:
+    """Each cache leaf's spec, as ``repro.models.transformer.cache_pspecs``:
+    the parameter rules plus ``kvheads`` on ``model``, a mesh axis taken
+    by the first dimension that can use it."""
+    sizes = _sizes(mesh)
+    rules = dict(SHARDING_RULES)
+    rules["kvheads"] = "model"
+
+    def spec(p: P):
+        parts, seen = [], set()
+        for dim, ax in zip(p.shape, p.axes):
+            mesh_ax = rules.get(ax)
+            if (mesh_ax is not None and mesh_ax not in seen
+                    and dim % sizes[mesh_ax] == 0 and dim > 1):
+                parts.append(mesh_ax)
+                seen.add(mesh_ax)
+            else:
+                parts.append(None)
+        return tuple(parts)
+
+    return _map(spec, cache_template(cfg, batch, s_max, s_enc))
+
+
+def shard_tree(tree: Dict[str, Any], specs: Dict[str, Any], mesh,
+               rank: Optional[int] = None) -> Dict[str, Any]:
+    """Each leaf's block at ``rank``'s coordinates (default: the mesh's own
+    rank), copied out of the full leaf: exactly the block JAX's
+    ``NamedSharding(mesh, spec)`` puts on that device."""
+    coords = mesh_coords(mesh, rank)
+    return _map2(lambda t, sp: block(t, sp, mesh, coords), tree, specs)
+
+
+def unshard_tree(tree: Dict[str, Any], specs: Dict[str, Any],
+                 mesh) -> Dict[str, Any]:
+    """The full leaves, gathered from every rank's blocks (every rank gets
+    them; for tests and checkpoints)."""
+    return _map2(lambda t, sp: gather_leaf(t, sp, mesh), tree, specs)
+
+
 # ----------------------------------------------------------------- realize
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Dict[str, Any]:
+                device, mesh=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's init kinds and scales.
     ``generator`` must live on ``device``; the numbers differ from JAX's
-    (tests load JAX's weights with ``params_from_reference`` instead)."""
+    (tests load JAX's weights with ``params_from_reference`` instead).
+    With ``mesh``, each leaf is drawn whole in the same order from the
+    same generator and only the rank's block is kept, so the blocks equal
+    ``shard_tree`` of the unsharded draw and one full leaf is the most
+    that is held beside them."""
     dt = _dtype(cfg)
+    coords = mesh_coords(mesh) if mesh is not None else None
 
-    def make(p: P):
+    def make(p: P, spec):
+        sl = (shard_slices(p.shape, spec, mesh, coords) if mesh is not None
+              else tuple(slice(0, n) for n in p.shape))
+        shape = tuple(x.stop - x.start for x in sl)
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if p.init == "ones":
-            return torch.ones(p.shape, dtype=dt, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         if p.init == "alog":
             a = torch.arange(1, p.shape[-1] + 1, dtype=torch.float32,
                              device=device)
-            return torch.log(a).expand(p.shape).to(dt).contiguous()
+            return torch.log(a)[sl[-1]].expand(shape).to(dt).contiguous()
         if p.init == "dtbias":
-            return torch.full(p.shape, math.log(math.e - 1), dtype=dt,
+            return torch.full(shape, math.log(math.e - 1), dtype=dt,
                               device=device)
         scale = 0.006 if p.init == "small" else 0.02
         if p.init == "embed":
             scale = 1.0 / math.sqrt(cfg.d_model)
         w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return w.mul_(scale).to(dt)
+        if mesh is None:
+            return w.mul_(scale).to(dt)
+        out = (w[sl] * scale).to(dt)
+        del w
+        return out
 
-    return _map(make, param_template(cfg))
+    tmpl = param_template(cfg)
+    specs = (param_pspecs(cfg, mesh) if mesh is not None
+             else _map(lambda p: None, tmpl))
+    return _map2(make, tmpl, specs)
 
 
 class ParamTree(nn.Module):
@@ -284,18 +414,53 @@ class Transformer(nn.Module):
     pass.  ``device=None`` is CUDA, and raises where there is none; the
     parameters are ``params`` (a nested dict of tensors, as
     ``init_params`` returns) or drawn from ``generator`` (default: seed 0
-    on the device)."""
+    on the device).
+
+    With ``mesh`` (``launch/mesh.py::Mesh``) the model holds only this
+    rank's block of each leaf (``param_pspecs``; ``params`` are the full
+    leaves, cut here) on the mesh's device, and serves sharded: the
+    forward takes this rank's rows of the batch and a cache from
+    ``init_cache(..., mesh=)``; ``logits_from_hidden`` gives its block of
+    the vocabulary."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device, "Transformer")
+        self.mesh = mesh
+        self.pspecs = None
+        if mesh is None:
+            self.device = resolve_device(device, "Transformer")
+        else:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"a model on {mesh} computes on "
+                                 f"{mesh.device}, not {device}")
+            self.device = mesh.device
+            self.pspecs = param_pspecs(cfg, mesh)
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
-            params = init_params(cfg, generator, self.device)
+            params = init_params(cfg, generator, self.device, mesh)
+        elif mesh is not None:
+            params = shard_tree(params, self.pspecs, mesh)
         self.params = ParamTree(_map(lambda t: t.to(self.device), params))
+
+    def _whole(self, tree, specs) -> Dict[str, Any]:
+        """A parameter subtree with its ``embed`` dimensions gathered over
+        ``data`` (FSDP): each leaf as the layers compute on it, split over
+        ``model`` at most.  Off a mesh, the tree itself."""
+        if self.mesh is None:
+            return tree
+        mesh = self.mesh
+
+        def fsdp(t, spec):
+            for i, a in enumerate(spec):
+                if a == "data":
+                    t = mesh.gather_dim(t, mesh.data_group, i)
+            return t
+
+        return _map2(fsdp, tree, specs)
 
     def forward(self, batch: dict, mode: str = "train",
                 cache: Optional[dict] = None):
@@ -307,16 +472,28 @@ class Transformer(nn.Module):
         scalar); the cache given, updated in place, or None without one.
         ``mode`` names the JAX mode: "decode" reads the cross KV from the
         cache; "train" recomputes each sub-layer in the backward pass,
-        which changes no number; otherwise the cache alone decides."""
+        which changes no number; otherwise the cache alone decides.  On a
+        mesh, B is this rank's rows (``launch/steps.py`` slices them) and
+        the cache is ``init_cache(..., mesh=)``'s."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
-        cfg, params = self.cfg, self.params
+        cfg = self.cfg
         groups, specs = _groups(cfg)
         remat = mode == "train"
+        tp, rows = NO_TP, None
+        if self.mesh is not None:
+            if remat:
+                raise NotImplementedError(
+                    "training on a mesh (gradients reduce-scattered, "
+                    "optimizer state specs) is ROADMAP A11c")
+            tp, rows = self._layout(batch, cache)
+        top = self._top("embed", "final_norm", "enc_norm")
         enc_out = None
         if cfg.encoder_layers and "enc_embeds" in batch:
-            enc_out = run_encoder(cfg, params, batch["enc_embeds"],
-                                  remat=remat)
+            enc_out = run_encoder(cfg, self.params, batch["enc_embeds"],
+                                  remat=remat, tp=tp,
+                                  whole=self._sub_whole("enc"),
+                                  enc_norm=top["enc_norm"])
         if cfg.input_mode == "embeds" and "embeds" in batch:
             b, s = batch["embeds"].shape[:2]
             dev = batch["embeds"].device
@@ -324,30 +501,81 @@ class Transformer(nn.Module):
             b, s = batch["tokens"].shape
             dev = batch["tokens"].device
         positions = _positions(batch, s, b, dev)
-        x = _embed_in(cfg, params, batch, positions)
+        x = _embed_in(cfg, top, batch, positions, tp)
         cache_index = None
         if cache is not None:
             cache_index = batch.get("cache_index", 0)
         x, aux = _stack_forward(
-            cfg, params["dec"], x, positions, groups=groups, specs=specs,
-            causal=True, cache=cache, cache_index=cache_index,
-            enc_out=enc_out, decode=(mode == "decode"), remat=remat)
-        x = norm(x, params["final_norm"], cfg.norm)
+            cfg, self.params["dec"], x, positions, groups=groups,
+            specs=specs, causal=True, cache=cache, cache_index=cache_index,
+            enc_out=enc_out, decode=(mode == "decode"), remat=remat, tp=tp,
+            whole=self._sub_whole("dec"), rows=rows)
+        x = norm(x, top["final_norm"], cfg.norm)
         return x, aux, cache
 
+    def _top(self, *keys) -> Dict[str, Any]:
+        """The named top-level parameters (embedding, head, norms) as plain
+        dicts, gathered over ``data`` on a mesh."""
+        tree = {k: self.params[k].tree() if isinstance(self.params[k],
+                                                       ParamTree)
+                else self.params[k] for k in keys if k in self.params}
+        if self.mesh is None:
+            return tree
+        return self._whole(tree, {k: self.pspecs[k] for k in tree})
+
+    def _sub_whole(self, stack: str):
+        """(group params, i) -> sub-layer i's parameters gathered over
+        ``data`` (the group axis of the stacked specs dropped)."""
+        if self.mesh is None:
+            return lambda gp, i: gp[f"sub{i}"]
+        specs = _map(lambda sp: sp[1:], self.pspecs[stack])
+        return lambda gp, i: self._whole(gp[f"sub{i}"], specs[f"sub{i}"])
+
+    def _layout(self, batch: dict, cache) -> Tuple[TP, Optional[tuple]]:
+        """The model axis's context for one sharded forward (the cache's
+        sequence split or not) and where this rank's rows of the batch
+        sit in its cache block: (rows the batch has, rows the cache
+        block has) as global (start, stop), and the global batch."""
+        mesh = self.mesh
+        if not isinstance(cache, ShardedCache):
+            raise ValueError("a sharded model serves a cache from "
+                             "init_cache(..., mesh=)")
+        seq_split = any(sp["k"][2] == "model"
+                        for sp in cache.specs.values() if "k" in sp)
+        sub = next(iter(cache.specs))
+        leaf = next(iter(cache.specs[sub]))
+        x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        b_loc, b_c = x.shape[0], cache[sub][leaf].shape[1]
+        a0 = mesh.lane_index * b_loc if b_loc < cache.batch else 0
+        c0 = (mesh.coords["data"] * b_c
+              if cache.specs[sub][leaf][1] == "data" else 0)
+        rows = ((a0, a0 + b_loc), (c0, c0 + b_c), cache.batch)
+        return TP(mesh, seq_split, rows[0] if b_loc < cache.batch
+                  else None), rows
+
     def logits_from_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
-        cfg, params = self.cfg, self.params
+        """Logits [..., padded_vocab] (on a mesh, this rank's block of the
+        vocabulary; ``vocab_offset`` says where it starts), the padding
+        columns masked."""
+        cfg = self.cfg
+        top = self._top("embed", "lm_head")
         if cfg.tie_embeddings:
-            w = params["embed"]["tok"].T
+            w = top["embed"]["tok"].T
         else:
-            w = params["lm_head"]
+            w = top["lm_head"]
         logits = hidden @ w.to(hidden.dtype)
         logits = softcap(logits, cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab:  # mask the TP-padding columns
-            pad = torch.arange(cfg.padded_vocab,
+            v0 = self.vocab_offset(logits.shape[-1])
+            pad = torch.arange(v0, v0 + logits.shape[-1],
                                device=logits.device) >= cfg.vocab
             logits = logits.masked_fill(pad, -1e30)
         return logits
+
+    def vocab_offset(self, v_loc: int) -> int:
+        """The first vocabulary id of this rank's block of ``v_loc``."""
+        return TP(self.mesh).offset(v_loc, self.cfg.padded_vocab) \
+            if self.mesh is not None else 0
 
 
 def loss_fn(model: Transformer, batch: dict):
@@ -371,10 +599,11 @@ def loss_fn(model: Transformer, batch: dict):
 
 
 def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
-                          device=None) -> Transformer:
+                          device=None, mesh=None) -> Transformer:
     """A model holding the JAX package's parameters: ``tree`` is the JAX
     ``init_params`` tree as numpy arrays, groups stacked as [groups, ...].
-    Every leaf of the template must be there, with its shape."""
+    Every leaf of the template must be there, with its shape.  With
+    ``mesh``, the model holds this rank's blocks of them."""
     tmpl = param_template(cfg)
 
     def load(t, ref, path):
@@ -397,7 +626,7 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
             out[k] = a.to(_dtype(cfg))
         return out
 
-    return Transformer(cfg, load(tmpl, tree, ""), device=device)
+    return Transformer(cfg, load(tmpl, tree, ""), device=device, mesh=mesh)
 
 
 # -------------------------------------------------------------------- cache
@@ -437,36 +666,63 @@ def cache_template(cfg: ModelConfig, batch: int, s_max: int,
     return t
 
 
+class ShardedCache(dict):
+    """A decode cache on a mesh: this rank's block of each leaf (the dict
+    itself), the leaves' specs (``cache_pspecs``) and the global sizes
+    they were cut from."""
+
+    def __init__(self, tree: dict, specs: dict, batch: int, s_max: int,
+                 s_enc: Optional[int]):
+        super().__init__(tree)
+        self.specs, self.batch, self.s_max, self.s_enc = (specs, batch,
+                                                          s_max, s_enc)
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None, *,
-               s_enc: Optional[int] = None) -> Dict[str, Any]:
+               s_enc: Optional[int] = None, mesh=None) -> Dict[str, Any]:
     """A zeroed decode cache in the config's dtype; CUDA by default.  An
-    encoder-decoder model needs ``s_enc`` (the encoder length) to decode."""
-    dev = resolve_device(device, "init_cache")
-    return _map(lambda p: torch.zeros(p.shape, dtype=_dtype(cfg),
-                                      device=dev),
-                cache_template(cfg, batch, s_max, s_enc))
+    encoder-decoder model needs ``s_enc`` (the encoder length) to decode.
+    With ``mesh``, a ``ShardedCache`` of this rank's blocks (of the global
+    ``batch`` and ``s_max``) on the mesh's device."""
+    tmpl = cache_template(cfg, batch, s_max, s_enc)
+    if mesh is None:
+        dev = resolve_device(device, "init_cache")
+        return _map(lambda p: torch.zeros(p.shape, dtype=_dtype(cfg),
+                                          device=dev), tmpl)
+    specs = cache_pspecs(cfg, mesh, batch, s_max, s_enc)
+    coords = mesh_coords(mesh)
+
+    def zeros(p: P, spec):
+        sl = shard_slices(p.shape, spec, mesh, coords)
+        return torch.zeros(tuple(x.stop - x.start for x in sl),
+                           dtype=_dtype(cfg), device=mesh.device)
+
+    return ShardedCache(_map2(zeros, tmpl, specs), specs, batch, s_max,
+                        s_enc)
 
 
 # ------------------------------------------------------------------ forward
-def _zero_state(cfg, spec: LayerSpec, x):
+def _zero_state(cfg, spec: LayerSpec, x, p=None):
     """The mixer's state when there is no cache (train): zeros, the
-    recurrent state in float32 as the JAX package starts it."""
+    recurrent state in float32 as the JAX package starts it (``p``, the
+    sub-layer's parameters, sizes a rank's channels or heads)."""
     b, dev = x.shape[0], x.device
     if spec.mixer == "mamba":
         m = cfg.mamba
-        di = m.d_inner(cfg.d_model)
+        di = (p["mixer"]["conv_w"].shape[1] if p is not None
+              else m.d_inner(cfg.d_model))
         return (torch.zeros((b, di, m.d_state), dtype=torch.float32,
                             device=dev),
                 torch.zeros((b, m.d_conv - 1, di), dtype=x.dtype,
                             device=dev))
     hd = cfg.rwkv.head_dim
-    return (torch.zeros((b, cfg.d_model // hd, hd, hd), dtype=torch.float32,
-                        device=dev),
+    h = p["mixer"]["u"].shape[0] if p is not None else cfg.d_model // hd
+    return (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev),
             torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev))
 
 
 def _run_sublayer(cfg, spec: LayerSpec, p, x, positions, *, causal, cache,
-                  cache_index, enc_out, decode):
+                  cache_index, enc_out, decode, tp: TP = NO_TP):
     """One decoder (or encoder) layer.  ``cache`` (this layer's views into
     the stacked cache, or None) is updated in place; a recurrent state is
     stored in the cache's dtype, as the JAX package casts it.  Returns
@@ -475,17 +731,18 @@ def _run_sublayer(cfg, spec: LayerSpec, p, x, positions, *, causal, cache,
     if spec.mixer == "attn":
         kv = None if cache is None else {"k": cache["k"], "v": cache["v"]}
         out = attention(p["mixer"], h, cfg, spec, positions, causal=causal,
-                        cache=kv, cache_index=cache_index)
+                        cache=kv, cache_index=cache_index, tp=tp)
     else:
         names = (("ssm", "conv") if spec.mixer == "mamba"
                  else ("wkv", "shift_att"))
-        state = (_zero_state(cfg, spec, x) if cache is None
+        state = (_zero_state(cfg, spec, x, p) if cache is None
                  else tuple(cache[n] for n in names))
         if spec.mixer == "mamba":
-            out, new = mamba_mix(p["mixer"], h, cfg, state)
+            out, new = mamba_mix(p["mixer"], h, cfg, state, tp)
         else:   # one token: the exact step, equal to a padded 64-chunk
             out, new = rwkv_time_mix(p["mixer"], h, cfg, state,
-                                     chunk=1 if h.shape[1] == 1 else 64)
+                                     chunk=1 if h.shape[1] == 1 else 64,
+                                     tp=tp)
         if cache is not None:
             cache[names[0]].copy_(new[0].to(x.dtype))
             cache[names[1]].copy_(new[1])
@@ -505,7 +762,7 @@ def _run_sublayer(cfg, spec: LayerSpec, p, x, positions, *, causal, cache,
                              "cross KV: init_cache(..., s_enc=)")
         out = attention(p["xattn"], hx, cfg, spec, positions, causal=False,
                         cache=xc,
-                        kv_source=None if decode and xc else enc_out)
+                        kv_source=None if decode and xc else enc_out, tp=tp)
         x = x + out
 
     h2 = norm(x, p["ln2"], cfg.norm)
@@ -514,49 +771,85 @@ def _run_sublayer(cfg, spec: LayerSpec, p, x, positions, *, causal, cache,
         shift = (cache["shift_ffn"] if cache is not None else
                  torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
                              device=x.device))
-        out, sh2 = rwkv_channel_mix(p["mlp"], h2, shift, cfg)
+        out, sh2 = rwkv_channel_mix(p["mlp"], h2, shift, cfg, tp)
         if cache is not None:
             cache["shift_ffn"].copy_(sh2)
     elif spec.mlp == "moe":
-        out, aux = moe_ffn(p["mlp"], h2, cfg)
+        out, aux = moe_ffn(p["mlp"], h2, cfg, tp)
     else:
-        out = mlp(p["mlp"], h2, cfg)
+        out = mlp(p["mlp"], h2, cfg, tp)
     if cfg.post_norms:
         out = norm(out, p["pn2"], cfg.norm)
     return x + out, aux
 
 
+def _cache_rows(cache: dict, g: int, rows, tp: TP):
+    """Sub-layer caches of group ``g`` holding the batch's rows: views of
+    the cache block where it holds exactly those rows (always, on a
+    (data, model) mesh); else (pod x data, where the batch and the cache
+    split differently) copies, taken from the block or gathered over
+    ``data``, and a write-back that gathers the new rows over pod x data
+    into the block, as GSPMD would reshard them."""
+    views = {k: t[g] for k, t in cache.items()}
+    if rows is None:
+        return views, None
+    (a0, a1), (c0, c1), b = rows
+    if (a0, a1) == (c0, c1):
+        return views, None
+    mesh = tp.mesh
+    tmp = {k: mesh.gather_dim(t, mesh.data_group, 0)[a0:a1].clone()
+           for k, t in views.items()}
+    mesh.layout_bytes += sum(t.nbytes for t in tmp.values())
+
+    def write_back():
+        for k, t in tmp.items():
+            full = t if a1 - a0 == b else mesh.gather_dim(
+                t, mesh.lane_group, 0)
+            views[k].copy_(full[c0:c1])
+
+    return tmp, write_back
+
+
 def _stack_forward(cfg, stack_params: ParamTree, x, positions, *, groups,
                    specs, causal, cache=None, cache_index=None,
-                   enc_out=None, decode=False, remat=False):
+                   enc_out=None, decode=False, remat=False, tp: TP = NO_TP,
+                   whole=None, rows=None):
     """Loop over layer groups and their sub-layers; ``cache`` (stacked
     over groups) is updated in place.  ``remat`` runs each sub-layer under
     ``torch.utils.checkpoint``: only its input is kept for the backward
     pass, which runs it again.  (The JAX package remats each layer group;
     one sub-layer at a time is what lets a full-width Mamba layer, whose
     scan keeps several [B, S, d_inner * d_state] float32 tensors, train on
-    one card.)  Returns (x, aux)."""
+    one card.)  On a mesh, ``whole(group params, i)`` gathers sub-layer
+    i's parameters over ``data`` and ``rows`` places the batch's rows in
+    the cache block (``Transformer._layout``).  Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    whole = whole or (lambda gp, i: gp[f"sub{i}"])
     for g in range(groups):
         gp = stack_params.select(g)
         for i, spec in enumerate(specs):
-            sub_c = None
+            sub_c, write_back = None, None
             if cache is not None:
-                sub_c = {k: t[g] for k, t in cache[f"sub{i}"].items()}
+                sub_c, write_back = _cache_rows(cache[f"sub{i}"], g, rows,
+                                                tp)
             kw = dict(causal=causal, cache=sub_c, cache_index=cache_index,
-                      enc_out=enc_out, decode=decode)
+                      enc_out=enc_out, decode=decode, tp=tp)
+            p = whole(gp, i)
             if remat:
-                x, a = checkpoint(_run_sublayer, cfg, spec, gp[f"sub{i}"],
-                                  x, positions, use_reentrant=False, **kw)
+                x, a = checkpoint(_run_sublayer, cfg, spec, p, x, positions,
+                                  use_reentrant=False, **kw)
             else:
-                x, a = _run_sublayer(cfg, spec, gp[f"sub{i}"], x, positions,
-                                     **kw)
+                x, a = _run_sublayer(cfg, spec, p, x, positions, **kw)
+            del p
+            if write_back is not None:
+                write_back()
             if a is not None:
                 aux = aux + a
     return x, aux
 
 
-def run_encoder(cfg, params, enc_embeds, *, remat: bool = False):
+def run_encoder(cfg, params, enc_embeds, *, remat: bool = False,
+                tp: TP = NO_TP, whole=None, enc_norm=None):
     """The bidirectional encoder stack over ``enc_embeds`` [B,S_enc,d],
     then ``enc_norm`` (no positional term, as in the JAX package)."""
     b, s, _ = enc_embeds.shape
@@ -564,21 +857,36 @@ def run_encoder(cfg, params, enc_embeds, *, remat: bool = False):
                        device=enc_embeds.device)[None].expand(b, s)
     x, _ = _stack_forward(cfg, params["enc"], enc_embeds.to(_dtype(cfg)),
                           pos, groups=cfg.encoder_layers, specs=[ENC_SPEC],
-                          causal=False, remat=remat)
-    return norm(x, params["enc_norm"], cfg.norm)
+                          causal=False, remat=remat, tp=tp, whole=whole)
+    return norm(x, params["enc_norm"] if enc_norm is None else enc_norm,
+                cfg.norm)
 
 
-def _embed_in(cfg, params, batch, positions):
+def _embed_in(cfg, params, batch, positions, tp: TP = NO_TP):
+    """The input embeddings.  On a mesh the token table is the rank's
+    block of the vocabulary: ids outside it give zero rows and the
+    blocks' rows are summed over ``model``; the learned position table's
+    column block is looked up and gathered."""
     if cfg.input_mode == "embeds" and "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg))
     else:
-        x = params["embed"]["tok"][batch["tokens"]]
+        tok = params["embed"]["tok"]
+        v_loc = tok.shape[0]
+        if v_loc == cfg.padded_vocab:
+            x = tok[batch["tokens"]]
+        else:
+            idx = batch["tokens"] - tp.offset(v_loc, cfg.padded_vocab)
+            ok = (idx >= 0) & (idx < v_loc)
+            x = torch.where(ok[..., None], tok[idx.clamp(0, v_loc - 1)],
+                            torch.zeros((), dtype=tok.dtype,
+                                        device=tok.device))
+            x = tp.reduce(x)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     if cfg.pos == "learned":
         pos = positions if positions.dim() == 2 else positions[0]
-        x = x + params["embed"]["pos"][pos]
+        x = x + tp.full(params["embed"]["pos"][pos], -1, cfg.d_model)
     return x
 
 

@@ -1,5 +1,5 @@
 """Optimizers and gradient compression (PyTorch port of ``repro.optim``,
-without the sharding specs and the compressed all-reduces: ROADMAP A11b)."""
+without the sharding specs and the compressed all-reduces: ROADMAP A11c)."""
 
 from repro_torch.optim.compression import (  # noqa: F401
     dequantize_int8,

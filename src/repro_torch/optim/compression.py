@@ -3,8 +3,8 @@
 PyTorch port of ``repro.optim.compression``'s ``quantize_int8`` and
 ``dequantize_int8``; both round half to even, as ``jnp.round`` does.  The
 compressed all-reduces built on them (``compressed_psum``,
-``compressed_psum_exact``) are collectives and wait for the LM side of
-sharding (ROADMAP A11b).
+``compressed_psum_exact``) are collectives and wait for training on a
+mesh (ROADMAP A11c).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ params)`` returns (updates, new state), as the JAX optimizers do; the
 caller adds the updates.  Adafactor is what the 398B-class configs name
 (float32 Adam moments would not fit their memory plan); ``state_dtype``
 keeps AdamW's moments in bf16 above 5e10 parameters.  The sharding specs
-(``state_pspecs``, ``opt_state_pspecs``) wait for ROADMAP A11b.
+(``state_pspecs``, ``opt_state_pspecs``) wait for ROADMAP A11c.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ trainer takes a mesh.  The contract is the JAX package's:
   * the straggler watchdog flags steps slower than ``straggler_factor`` x
     the trailing median.
 
-Elastic re-meshing (``resize``) needs the LM side of sharding, ROADMAP
-A11b.
+Elastic re-meshing (``resize``) needs training on a mesh, ROADMAP
+A11c.
 """
 
 from __future__ import annotations
@@ -155,8 +155,8 @@ class Trainer:
     # -------------------------------------------------------------- elastic
     def resize(self, new_mesh) -> None:
         raise NotImplementedError(
-            "Trainer.resize re-meshes a sharded run: the LM side of "
-            "sharding is ROADMAP A11b")
+            "Trainer.resize re-meshes a sharded run: training on a mesh "
+            "is ROADMAP A11c")
 
 
 def _copy_into(dst: Dict[str, Any], src: Dict[str, Any]) -> None:

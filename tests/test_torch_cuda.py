@@ -794,3 +794,57 @@ def test_gloo_world_sharing_the_card(cuda, monkeypatch):
             assert r["host_staged"] and r["cores"] == want, key
             assert r["launches"][kernel] > 0, key
             assert r["collective_bytes"] == r["want_bytes"], key
+
+
+# ------------------------------------------------- sharded LM serving
+def test_sharded_lm_on_unit_mesh_equals_unsharded(nccl_unit_mesh):
+    """The smoke Jamba (with experts) on the unit mesh over NCCL: the
+    sharded steps launch ssm_scan once per Mamba layer and pass and give
+    the unsharded model's logits and tokens bit for bit."""
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    dev = nccl_unit_mesh.device
+    out = []
+    for mesh in (None, nccl_unit_mesh):
+        model = T.Transformer(cfg, generator=torch.Generator(dev)
+                              .manual_seed(0), device=None if mesh else dev,
+                              mesh=mesh)
+        cache = T.init_cache(cfg, 2, 32, None if mesh else dev, mesh=mesh)
+        prompt = torch.arange(16, device=dev).reshape(2, 8) % cfg.vocab
+        scan.ssm_scan.launches = 0
+        last, cache = prefill_step(model, {"tokens": prompt}, cache)
+        tok = last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks = [tok]
+        for i in range(4):
+            tok, cache = serve_step(model, cache, {"tokens": tok,
+                                                   "cache_index": 8 + i})
+            toks.append(tok)
+        n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+        assert scan.ssm_scan.launches == 5 * n_mamba
+        out.append((last.cpu(), torch.cat(toks, 1).cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_gloo_world_serves_sharded_lm_on_the_card(cuda, monkeypatch):
+    """Two gloo ranks on cuda:0 serve the smoke Jamba with experts on
+    (1, 2) (chip_smoke.lm_rank): each launches ssm_scan on its channel
+    shard and gets the unsharded run's tokens."""
+    import os
+
+    from repro_torch.launch.world import run_world
+
+    root = str(Path(__file__).resolve().parents[1])
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    case = ("jamba_moe", cfg, {}, (1, 2), 16, 64, None, 4)
+    want = chip_smoke.serve_case(case, dev=cuda)
+    outs = run_world("chip_smoke:lm_rank", 2, args=((case,), "cuda:0"),
+                     backend="gloo", timeout_s=300)
+    n_mamba = want["n_mamba"]
+    for (o,) in outs:
+        assert o["host_staged"] and o["tokens"] == want["tokens"]
+        assert o["launches_prefill"]["ssm_scan"] == n_mamba
+        assert o["launches_decode"]["ssm_scan"] == 4 * n_mamba
+        assert sum(o["sent"].values()) > 0 and o["layout"] > 0
