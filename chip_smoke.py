@@ -117,8 +117,8 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    split by sequence, ssm_scan on each rank's [2, 2,048, 131,072]); (c)
    phase 9's Jamba with experts (2 layers, 8 experts a rank) on (1, 2);
    (d) granite-moe, rwkv6, whisper-small and qwen2-vl (layers cut 80 ->
-   4) on (2, 2), four gloo ranks; 4 teacher-forced steps in (b) and (c),
-   2 in (d).  Each model of (b)-(d) is first served unsharded (its tokens
+   2) on (2, 2), four gloo ranks; 2 teacher-forced steps in (b) and (c),
+   1 in (d).  Each model of (b)-(d) is first served unsharded (its tokens
    equal to phase 6's or 9's) and each rank is held to it, each step fed
    the unsharded token: the same model in float32 (256 prompt tokens
    into a 512-position cache, then 2 decode steps that write the second
@@ -129,6 +129,29 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    each rank reports its times, memory, collective bytes and the bytes of
    its layout gathers (Mamba's in_proj).  ssm_scan is held to its plain
    loop at the rank's shape;
+
+13. (run after phases 10 and 12) trains on a mesh
+   (``Transformer(cfg, mesh=)``, ``build_train_step``, the differentiable
+   collectives): (a) phase 10c's model, batches and Adafactor, in a
+   process of its own under PyTorch's deterministic kernels: 2 steps
+   mesh-free, then 2 on the unit mesh over NCCL, whose losses, norms and
+   every parameter after each step equal the mesh-free ones bit for bit;
+   (b) the same on (data, model) = (1, 2), two gloo ranks sharing the
+   card, 2 steps, the first traced, the second timed bare: each rank
+   launches ssm_scan 14 and ssm_scan_bwd 7 a step on its channel shard
+   [2, 2,048, 131,072], and reports its step seconds, tokens/s,
+   model-FLOP utilisation (both ranks' work over one card's peak),
+   memory, bytes to the collectives and the scans' device time (traced
+   step); (c) float32 at published
+   widths cut to a Mamba and an attention layer (the interleave 1:7 ->
+   1:1), 2 x 128 tokens, on (1, 2): the loss, norm, every gradient and
+   every updated parameter within 1e-4 relative of the unsharded port;
+   (d) four gloo ranks on (2, 2): the smoke Jamba with experts and
+   granite-moe the same way, the ``Trainer`` failing at step 3, resized
+   onto (1, 4) and resumed (every loss within 1e-5 relative of an
+   uninterrupted run's), and ``compressed_psum``/``_exact`` on CUDA
+   tensors equal to the CPU world's.  Both scans are then held to their
+   plain loops at a (b) rank's shape and timed;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -143,6 +166,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2329,19 +2353,19 @@ SHARDED_LM = {
              32_768, None, 8),),
     # gloo through host memory moves ~0.36 GB/s a rank on one H100 host:
     # a (1, 2) Jamba decode step, its 7 in_proj gathers (1.88 GB), takes
-    # ~5 s, so the gloo worlds' decode steps are cut, 8 -> 4 and 4 -> 2
+    # ~5 s, so for the script's time the gloo worlds' bf16 decode steps are
+    # cut, 8 -> 2 in (b) and (c) and 1 in (d), and qwen2-vl's layers 80 ->
+    # 2 (phase 9 serves 16, so its unsharded reference is served here)
     "12b": (("jamba", JAMBA, {"n_layers": 8, "moe": None}, (1, 2), 2_048,
-             32_768, None, 4),),
+             32_768, None, 2),),
     "12c": (("jamba_moe", JAMBA, {"n_layers": 2}, (1, 2), 2_048, 32_768,
-             None, 4),),
-    # qwen2-vl's layers cut 80 -> 4 for time (phase 9 serves 16, so its
-    # unsharded reference is served here)
+             None, 2),),
     "12d": (("granite_moe", "granite-moe-1b-a400m", {}, (2, 2), 2_048,
-             32_768, None, 2),
-            ("rwkv6", "rwkv6-1.6b", {}, (2, 2), 2_048, 32_768, None, 2),
-            ("whisper", "whisper-small", {}, (2, 2), 64, 448, 1_500, 2),
-            ("qwen2_vl_4", "qwen2-vl-72b", {"n_layers": 4}, (2, 2), 2_048,
-             32_768, None, 2)),
+             32_768, None, 1),
+            ("rwkv6", "rwkv6-1.6b", {}, (2, 2), 2_048, 32_768, None, 1),
+            ("whisper", "whisper-small", {}, (2, 2), 64, 448, 1_500, 1),
+            ("qwen2_vl_2", "qwen2-vl-72b", {"n_layers": 2}, (2, 2), 2_048,
+             32_768, None, 1)),
 }
 # each model of a sharded sub-phase is also served in float32: at most 256
 # prompt tokens into a cache of twice that, then 2 decode steps, so that on
@@ -2534,11 +2558,11 @@ def phase_sharded_lm(dev, want: dict) -> dict:
     """Phase 12: every LM family served sharded.  12a phase 6's Jamba on
     the unit mesh over NCCL; 12b the same on (1, 2), two gloo ranks
     sharing the card; 12c phase 9's Jamba with experts on (1, 2); 12d
-    granite-moe, rwkv6, whisper-small and qwen2-vl (4 layers) on (2, 2),
+    granite-moe, rwkv6, whisper-small and qwen2-vl (2 layers) on (2, 2),
     four gloo ranks.  ``want[name]`` holds phase 6's and 9's tokens.
     12a must give them bit for bit.  For 12b-12d each model is first
     served unsharded here (its tokens must equal phase 6's or 9's; qwen2-vl
-    at 4 layers has none) and every rank is held to that run: its float32
+    at 2 layers has none) and every rank is held to that run: its float32
     twin's prefill and decode logits within ``SHARD_F32_REL``, its bf16
     tokens reported (``hold_sharded``).  ssm_scan must launch once per Mamba layer and
     pass on every rank (on its channel shard), and a rank of a larger
@@ -2666,6 +2690,657 @@ def phase_sharded_lm(dev, want: dict) -> dict:
     return {"by_path": by_path, "at_shard": at_shard}
 
 
+# ------------------------------------------- phase 13: training on a mesh
+JAMBA8 = {"n_layers": 8, "moe": None}         # phase 10c's model
+UNIT_MESH_STEPS = 2                           # 13a: phase 10c's first steps
+# 13b: phase 10c's model on (data, model) = (1, 2), two gloo ranks sharing
+# the card: its first batches, its Adafactor; 2 steps (~50 s each, gloo
+# through host memory), the first traced, the second timed bare
+MESH_TRAIN = ("jamba", JAMBA8, (1, 2), 2, 2_048, 2)
+# 13c: float32 at published widths, cut in depth to the fewest layers that
+# hold a Mamba and an attention sub-layer.  Jamba's 1:7 interleave puts
+# its first attention layer 8th, and those 8 float32 layers (36.5 GB) do
+# not train beside their gradients on one card, so the interleave is cut
+# to 1:1 as well: a Mamba layer, then an attention layer
+F32_TRAIN = {"n_layers": 2, "attn_every": 2, "moe": None,
+             "dtype": "float32"}
+F32_TRAIN_ROWS = (2, 128)                     # 256 tokens
+MESH_TRAIN_SMOKE = (JAMBA, "granite-moe-1b-a400m")     # 13d, f32, (2, 2)
+MESH_TRAIN_DIR = ROOT / "build" / "chip_smoke_mesh_train"
+# a sharded gradient or updated parameter against the unsharded port's:
+# the norm of the difference over the norm of the reference, per leaf
+SHARD_TRAIN_REL = 1e-4
+
+
+def _named_blocks(model):
+    """{name: this rank's block} of every parameter."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def _named(tree: dict, prefix: str = "params") -> list:
+    """[(parameter name, leaf)] of a nested dict, in its own order."""
+    return [x for k, v in tree.items()
+            for x in (_named(v, f"{prefix}.{k}") if isinstance(v, dict)
+                      else [(f"{prefix}.{k}", v)])]
+
+
+def _grads_by_name(model, grads):
+    """{parameter name: gradient} of ``grads_of``'s list, which follows
+    ``params.tree()``'s leaf order (each level's sub-trees first)."""
+    order = [n for n, _ in _named(model.params.tree())]
+    check(len(order) == len(grads), "one gradient a parameter")
+    return dict(zip(order, grads))
+
+
+def unit_mesh_rank(device: str) -> dict:
+    """13a, one NCCL rank in a process of its own (``launch/world.py``), so
+    that PyTorch's deterministic kernels (an operator without one raises)
+    and a fixed cuBLAS workspace hold here and nowhere else in the script:
+    phase 10c's model, first ``UNIT_MESH_STEPS`` batches and Adafactor,
+    first mesh-free, then on the unit mesh (``Transformer(cfg, mesh=)``,
+    ``build_train_step``).  On one rank every collective is the identity,
+    so each step's loss, gradient norm and every parameter after it must
+    equal the mesh-free step's bit for bit."""
+    # read at the process's first matrix product: set before any
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.transformer import Transformer
+
+    torch.use_deterministic_algorithms(True)
+    # the only rank on the host: its copies use every core
+    torch.set_num_threads(os.cpu_count() or 1)
+    mesh = Mesh((1, 1), device=device)
+    dev = mesh.device
+    cfg = get_config(JAMBA).scaled(**JAMBA8)
+    batches = [_train_batch(cfg, 2, 2_048, 0, i, dev)
+               for i in range(UNIT_MESH_STEPS)]
+    ref, out = [], {"steps": [], "host_s": 0.0}
+    for on_mesh in (False, True):
+        model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                            **({"mesh": mesh} if on_mesh else {"device": dev}))
+        step, opt = build_train_step(cfg, n_micro=1, lr=3e-4)
+        state = (opt.init(model.params.tree(), mesh=mesh, pspecs=model.pspecs)
+                 if on_mesh else opt.init(model.params.tree()))
+        for i, batch in enumerate(batches):
+            (state, m), wall, n = run_path(
+                lambda st=state, b=batch: step(model, st, b))
+            t0 = time.perf_counter()
+            if not on_mesh:
+                # the mesh-free steps' parameters, kept on the host (host
+                # buffers are not filled first: they are written whole)
+                torch.utils.deterministic.fill_uninitialized_memory = False
+                ref.append({"loss": m["loss"].cpu(),
+                            "grad_norm": m["grad_norm"].cpu(),
+                            "params": {k: p.detach().to("cpu", copy=True)
+                                       for k, p in model.named_parameters()},
+                            "wall": wall, "launches": n})
+                torch.utils.deterministic.fill_uninitialized_memory = True
+                out["host_s"] += time.perf_counter() - t0
+                continue
+            r = ref[i]
+            differ = [k for k, p in model.named_parameters()
+                      if not torch.equal(p, r["params"][k].to(dev))]
+            out["host_s"] += time.perf_counter() - t0
+            out["steps"].append({
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "ref_loss": float(r["loss"]),
+                "ref_grad_norm": float(r["grad_norm"]),
+                "same": (torch.equal(m["loss"].cpu(), r["loss"])
+                         and torch.equal(m["grad_norm"].cpu(),
+                                         r["grad_norm"])),
+                "params": len(r["params"]), "differ": differ[:3],
+                "n_differ": len(differ), "wall": wall, "ref_wall": r["wall"],
+                "launches": n, "ref_launches": r["launches"]})
+            r["params"] = None
+        del model, state, step, opt
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out.update(backend=mesh.backend, sent=sum(mesh.sent_bytes.values()),
+               layout=mesh.layout_bytes)
+    return out
+
+
+def phase_train_unit_mesh(dev) -> dict:
+    """13a: ``unit_mesh_rank`` in a world of one NCCL rank; each unit-mesh
+    step launches ssm_scan 2 and ssm_scan_bwd 1 a Mamba layer, and equals
+    the mesh-free step bit for bit, with no collective bytes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import run_world
+
+    t = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfg = get_config(JAMBA).scaled(**JAMBA8)
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_mamba,
+            "ssm_scan_bwd": n_mamba}
+    if on_card:
+        torch.cuda.empty_cache()
+    (o,) = run_world("chip_smoke:unit_mesh_rank", 1,
+                     args=("cuda:0" if on_card else "cpu",),
+                     backend="nccl" if on_card else "gloo", timeout_s=600)
+    total = {k: 0 for k in want}
+    for i, st in enumerate(o["steps"]):
+        check(not on_card or (st["launches"] == want
+                              and st["ref_launches"] == want),
+              f"13a step {i}: launches {st['launches']} (mesh-free "
+              f"{st['ref_launches']}), want {want}")
+        check(st["same"] and st["n_differ"] == 0,
+              f"13a step {i}: loss {st['loss']!r}, grad norm "
+              f"{st['grad_norm']!r}; mesh-free {st['ref_loss']!r}, "
+              f"{st['ref_grad_norm']!r}; {st['n_differ']} parameters "
+              f"differ, e.g. {st['differ']}")
+        total = {k: total[k] + st["launches"][k] for k in total}
+        log(f"13a step {i} on the unit mesh ({o['backend']}, deterministic "
+            f"kernels): loss {st['loss']:.6f}, grad norm "
+            f"{st['grad_norm']:.6f}, {st['wall']:.3f}s (mesh-free "
+            f"{st['ref_wall']:.3f}s); the loss, the norm and all "
+            f"{st['params']} parameters equal the mesh-free step's bit for "
+            f"bit; launches {json.dumps(st['launches'])}")
+    check(o["sent"] == 0 and o["layout"] == 0,
+          f"13a: collective bytes {o['sent']}, layout {o['layout']}")
+    log(f"13a took {time.perf_counter() - t:.1f}s, process start included, "
+        f"{o['host_s']:.1f}s of it keeping and comparing parameters")
+    return {"sharded_train_13a": total}
+
+
+def _scan_shapes():
+    """Record the shape of every scan launch: (forward shapes, backward
+    shapes), sets filled as the kernels run (each kernel's dispatcher
+    checks its CUDA inputs through ``ops._check`` before it launches)."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    seen = {"ssm_scan": set(), "ssm_scan_bwd": set()}
+    check_inputs = ops._check
+
+    def recorded(name, names, big, small):
+        check_inputs(name, names, big, small)
+        seen[name].add(tuple(big[0].shape))
+
+    ops._check = recorded
+    return seen["ssm_scan"], seen["ssm_scan_bwd"]
+
+
+def mesh_train_rank(case, device: str) -> dict:
+    """One rank of 13b (``launch/world.py``): phase 10c's model, drawn from
+    its seed one full leaf at a time, trained sharded on ``case``'s mesh
+    through ``build_train_step`` on phase 10c's batches.  The first step
+    runs under the profiler (device only), the rest are timed bare; each
+    with the launch counters zeroed before it and read after it, and the
+    bytes this rank hands to the collectives counted."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.transformer import Transformer, param_template
+
+    name, cuts, shape, b, s, n_steps = case
+    mesh = Mesh(shape, device=device)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    cfg = get_config(JAMBA).scaled(**cuts)
+    fwd, bwd = _scan_shapes()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        mesh=mesh)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(math.prod(p.shape) for _, p in _named(
+        param_template(cfg)))
+    step, opt = build_train_step(cfg, n_micro=1, lr=3e-4)
+    state = opt.init(model.params.tree(), mesh=mesh, pspecs=model.pspecs)
+    steps = []
+    for i in range(n_steps):
+        batch = _train_batch(cfg, b, s, 0, i, dev)
+        for k in mesh.sent_bytes:
+            mesh.sent_bytes[k] = 0
+        mesh.layout_bytes = 0
+        kern, busy = {}, None
+        if i == 0 and on_card:
+            box = {}
+            (_, wall, n) = run_path(lambda st=state, bt=batch: box.update(
+                busy=profiled(lambda: box.update(r=step(model, st, bt)),
+                              f"13b step 0, rank {mesh.rank}", top=6,
+                              cpu_ops=False, kernels=kern)))
+            (state, m), busy = box["r"], box["busy"]
+        else:
+            (state, m), wall, n = run_path(
+                lambda st=state, bt=batch: step(model, st, bt))
+        scans = {k: v for k, v in kern.items() if "ssm_scan" in k}
+        steps.append({"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "wall": wall,
+                      "launches": n, "sent": dict(mesh.sent_bytes),
+                      "layout": mesh.layout_bytes, "busy": busy,
+                      "scan_device_ms": scans,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                      if on_card else 0,
+                      "resident_bytes": torch.cuda.memory_allocated(dev)
+                      if on_card else 0})
+    held = sum(p.numel() for p in model.parameters())
+    m = cfg.mamba
+    return {"rank": mesh.rank, "backend": mesh.backend, "dtype": cfg.dtype,
+            "host_staged": mesh.host_staged, "init_s": init_s,
+            "params": n_params, "held": held, "tokens": b * s,
+            "n_mamba": sum(sp.mixer == "mamba" for sp in cfg.layer_specs()),
+            "shard": (b, s, m.d_inner(cfg.d_model) // shape[-1] * m.d_state),
+            "steps": steps, "fwd_shapes": sorted(fwd),
+            "bwd_shapes": sorted(bwd)}
+
+
+def _rel_by_leaf(mesh, pairs: dict, specs: dict) -> dict:
+    """{name: |got - want| / |want|} over each whole leaf, from the
+    blocks of every rank (each block counted once, as the gradient norm
+    counts it)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.sharding import replicated_axes
+
+    names = sorted(pairs)
+    sq = torch.zeros((len(names), 2), dtype=torch.float64)
+    for i, k in enumerate(names):
+        got, want = pairs[k]
+        if all(mesh.coords[a] == 0 for a in replicated_axes(specs[k], mesh)):
+            sq[i, 0] = float(((got.double() - want.double()) ** 2).sum())
+            sq[i, 1] = float((want.double() ** 2).sum())
+    dist.all_reduce(sq)
+    return {k: float((sq[i, 0] / sq[i, 1].clamp(min=1e-300)).sqrt())
+            for i, k in enumerate(names)}
+
+
+def sharded_vs_unsharded(cfg, batch: dict, mesh, what: str,
+                         shapes=()) -> dict:
+    """One train step of ``cfg`` (seed 0 on the mesh's device), unsharded
+    and sharded on ``mesh``, held together: the loss and gradient norm,
+    and every leaf's gradient and updated parameter within
+    ``SHARD_TRAIN_REL`` (``_rel_by_leaf``).  The ranks compute the
+    unsharded step one at a time, each keeping only its blocks of the
+    result, so the card holds one unsharded model at a time.  Each step
+    runs with the launch counters zeroed before it and read after it; on
+    the card the sharded step must launch ssm_scan 2 and ssm_scan_bwd 1 a
+    Mamba layer.  ``shapes`` (``_scan_shapes``' sets) are emptied just
+    before the sharded step, so they hold its scans' shapes alone."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import apply_grads, grads_of
+    from repro_torch.models.sharding import block, mesh_coords
+    from repro_torch.models.transformer import Transformer, param_pspecs
+    from repro_torch.optim import make_optimizer
+
+    dev = mesh.device
+    coords = mesh_coords(mesh)
+    specs = dict(_named(param_pspecs(cfg, mesh)))
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_mamba,
+            "ssm_scan_bwd": n_mamba}
+    ref = ref_n = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            model = Transformer(cfg, generator=torch.Generator(dev)
+                                .manual_seed(0), device=dev)
+            (loss, grads), _, ref_n = run_path(lambda: grads_of(model, batch))
+            opt = make_optimizer(cfg)
+            state = opt.init(model.params.tree())
+            full = _grads_by_name(model, grads)
+            ref = {"loss": float(loss),
+                   "grads": {k: block(t, specs[k], mesh, coords)
+                             for k, t in full.items()}}
+            del full
+            state, gnorm = apply_grads(model, opt, state, grads)
+            del grads, state
+            ref["grad_norm"] = float(gnorm)
+            ref["params"] = {k: block(t, specs[k], mesh, coords)
+                             for k, t in _named_blocks(model).items()}
+            del model
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    model = Transformer(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        mesh=mesh)
+    opt = make_optimizer(cfg)
+    state = opt.init(model.params.tree(), mesh=mesh, pspecs=model.pspecs)
+    for seen in shapes:
+        seen.clear()
+
+    def sharded_step():
+        # the gradients are held to the reference's before the update
+        # (the collectives of the check launch no kernel)
+        loss, grads = grads_of(model, batch)
+        got_g = _grads_by_name(model, grads)
+        rel_g = _rel_by_leaf(mesh, {k: (got_g[k], ref["grads"][k])
+                                    for k in got_g}, specs)
+        del got_g
+        _, gnorm = apply_grads(model, opt, state, grads)
+        return loss, gnorm, rel_g
+
+    (loss, gnorm, rel_g), wall, n = run_path(sharded_step)
+    check(dev.type != "cuda" or n == want,
+          f"{what}: rank {mesh.rank}'s sharded step launched {n}, want "
+          f"{want}")
+    rel_p = _rel_by_leaf(mesh, {k: (p, ref["params"][k]) for k, p in
+                                _named_blocks(model).items()}, specs)
+    worst_g = max(rel_g, key=rel_g.get)
+    worst_p = max(rel_p, key=rel_p.get)
+    loss_rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    norm_rel = abs(float(gnorm) - ref["grad_norm"]) / ref["grad_norm"]
+    check(max(loss_rel, norm_rel, rel_g[worst_g], rel_p[worst_p])
+          <= SHARD_TRAIN_REL,
+          f"{what}: rank {mesh.rank} relative errors: loss {loss_rel:.3g}, "
+          f"norm {norm_rel:.3g}, gradient {worst_g} {rel_g[worst_g]:.3g}, "
+          f"parameter {worst_p} {rel_p[worst_p]:.3g}")
+    out = {"loss": float(loss), "loss_rel": loss_rel, "norm_rel": norm_rel,
+           "grad_rel": rel_g[worst_g], "grad_worst": worst_g,
+           "param_rel": rel_p[worst_p], "param_worst": worst_p,
+           "leaves": len(rel_g), "launches": n, "wall": wall,
+           "ref_launches": ref_n}
+    del model, state, ref
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_check_rank(cuts: dict, shape, rows, device: str) -> dict:
+    """One rank of 13c: phase 10c's model in float32 cut to ``cuts``, one
+    step on ``rows`` of phase 10c's first batch, sharded on ``shape``
+    against the unsharded port on the card (``sharded_vs_unsharded``);
+    the launches of the sharded step's scans and their shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(shape, device=device)
+    cfg = get_config(JAMBA).scaled(**cuts)
+    batch = _train_batch(cfg, *rows, 0, 0, mesh.device)
+    fwd, bwd = _scan_shapes()
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    out = sharded_vs_unsharded(cfg, batch, mesh, "13c", shapes=(fwd, bwd))
+    m = cfg.mamba
+    return {**out, "rank": mesh.rank, "total_s": time.perf_counter() - t0,
+            "shard": (*rows, m.d_inner(cfg.d_model) // shape[-1] * m.d_state),
+            "fwd_shapes": sorted(fwd), "bwd_shapes": sorted(bwd),
+            "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)
+            if on_card else 0,
+            "sent": dict(mesh.sent_bytes), "layout": mesh.layout_bytes}
+
+
+def mesh_smoke_rank(device: str, root: str) -> dict:
+    """One rank of 13d, on (2, 2) and four gloo ranks sharing the card:
+    the smoke Jamba with experts and granite-moe in float32 against the
+    unsharded port (``sharded_vs_unsharded``); the ``Trainer`` on (2, 2)
+    with a failure at step 3 and no restart budget, resized onto (1, 4)
+    and resumed from its checkpoint, against an uninterrupted (2, 2) run;
+    ``compressed_psum`` and ``compressed_psum_exact`` of CUDA tensors
+    against the same calls on the CPU over the same gloo world."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import compressed_psum, compressed_psum_exact
+    from repro_torch.runtime import FaultInjector, Trainer, TrainerConfig
+
+    mesh = Mesh((2, 2), device=device)
+    dev = mesh.device
+    out = {"rank": mesh.rank}
+    for arch in MESH_TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        batch = _train_batch(cfg, 4, 16, 1, 0, dev)
+        out[arch] = sharded_vs_unsharded(cfg, batch, mesh, f"13d {arch}")
+
+    cfg = get_smoke_config(JAMBA)
+    data = SyntheticLMData(vocab=cfg.vocab, batch=4, seq=16, seed=0)
+
+    def trainer(name, fail):
+        return Trainer(cfg, data,
+                       TrainerConfig(steps=4, ckpt_every=2, lr=1e-3,
+                                     ckpt_dir=f"{root}/{name}",
+                                     max_restarts=0),
+                       FaultInjector(fail_at=fail), mesh=mesh)
+
+    def to_failure():
+        try:
+            faulty.run()
+        except RuntimeError:
+            return True
+        return False
+
+    # each run with the launch counters zeroed before it and read after
+    # it: on the card every step it logs launches ssm_scan 2 and
+    # ssm_scan_bwd 1 a Mamba layer, and nothing else does
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
+    clean = trainer("clean", {})
+    (_, clean_s, n_clean) = run_path(clean.run)
+    faulty = trainer("faulty", {3: "injected node loss"})
+    raised, _, n_failed = run_path(to_failure)
+    n_logged = len(faulty.metrics)
+    faulty.resize(Mesh((1, 4), device=device))
+    _, resumed_s, n_resumed = run_path(faulty.run)
+    for run, n, steps in (("uninterrupted", n_clean, len(clean.metrics)),
+                          ("to the failure", n_failed, n_logged),
+                          ("resized", n_resumed,
+                           len(faulty.metrics) - n_logged)):
+        want = {"wave_peel": 0, "segdeg": 0,
+                "ssm_scan": 2 * n_mamba * steps,
+                "ssm_scan_bwd": n_mamba * steps}
+        check(dev.type != "cuda" or n == want,
+              f"13d trainer {run}: rank {mesh.rank} launched {n} in "
+              f"{steps} steps, want {want}")
+    want = {m["step"]: m["loss"] for m in clean.metrics}
+    seen = [m["step"] for m in faulty.metrics]
+    worst = max(abs(m["loss"] - want[m["step"]]) / abs(want[m["step"]])
+                for m in faulty.metrics)
+    check(raised and seen == [0, 1, 2, 2, 3] and worst <= 1e-5
+          and faulty.model.mesh.shape == (1, 4),
+          f"13d trainer: rank {mesh.rank} raised {raised}, steps {seen}, "
+          f"losses {worst:.3g} relative from the uninterrupted run's")
+    out["trainer"] = {"steps": seen, "worst_rel": worst,
+                      "clean_s": clean_s, "resumed_s": resumed_s,
+                      "launches": {k: n_failed[k] + n_resumed[k]
+                                   for k in n_failed},
+                      "clean_launches": n_clean,
+                      "losses": [m["loss"] for m in faulty.metrics]}
+
+    cpu = Mesh((2, 2), device="cpu")
+    rng = np.random.default_rng(100 + mesh.rank)
+    x = torch.from_numpy(rng.normal(0, 10.0 ** (mesh.rank - 2), (64, 129))
+                         .astype(np.float32))
+    e = torch.from_numpy(rng.normal(0, 1e-3, (64, 129)).astype(np.float32))
+    same = {}
+    for fname, fn in (("compressed_psum", compressed_psum),
+                      ("compressed_psum_exact", compressed_psum_exact)):
+        for axis in ("data", "model"):
+            on_card = fn(x.to(dev), axis, e.to(dev), mesh=mesh)
+            on_cpu = fn(x, axis, e, mesh=cpu)
+            ok = all(torch.equal(a.cpu(), b) for a, b in zip(on_card,
+                                                              on_cpu))
+            check(ok, f"13d {fname} over {axis}: rank {mesh.rank}'s CUDA "
+                  "result differs from the CPU world's")
+            same[f"{fname}/{axis}"] = ok
+    out["compressed"] = same
+    return out
+
+
+def phase_mesh_train(dev) -> dict:
+    """Phase 13: training on a mesh.  13a phase 10c's model on the unit
+    mesh against its mesh-free steps (``phase_train_unit_mesh``); 13b the
+    same model on (data, model) = (1, 2), two gloo ranks sharing the card,
+    each running ssm_scan and its backward on its channel shard [2, 2,048,
+    131,072]; 13c float32 at published widths on (1, 2) against the
+    unsharded port; 13d smoke widths on (2, 2): two models' gradients, the
+    Trainer's resize, the compressed all-reduces on CUDA tensors.  Then
+    both scans are held to their plain loops at a 13b rank's shape, and
+    timed."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.launch.world import run_world
+
+    t13 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    device = "cuda:0" if on_card else "cpu"
+    by_path = {}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    by_path.update(phase_train_unit_mesh(dev))
+
+    t = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    name, cuts, shape, b, s, n_steps = MESH_TRAIN
+    outs = run_world("chip_smoke:mesh_train_rank", math.prod(shape),
+                     args=(MESH_TRAIN, device), backend="gloo",
+                     timeout_s=900)
+    shard = outs[0]["shard"]
+    for o in outs:
+        n_m = o["n_mamba"]
+        want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_m,
+                "ssm_scan_bwd": n_m}
+        check(not on_card or (o["fwd_shapes"] == [shard]
+                              and o["bwd_shapes"] == [shard]),
+              f"13b rank {o['rank']}: scan shapes {o['fwd_shapes']} / "
+              f"{o['bwd_shapes']}, want {shard}")
+        for i, st in enumerate(o["steps"]):
+            check(not on_card or st["launches"] == want,
+                  f"13b rank {o['rank']} step {i}: launches "
+                  f"{st['launches']}, want {want}")
+            check(math.isfinite(st["loss"]) and st["grad_norm"] > 0,
+                  f"13b rank {o['rank']} step {i}: loss {st['loss']}")
+            check(sum(st["sent"].values()) > 0 and st["layout"] > 0,
+                  f"13b rank {o['rank']} step {i} sent nothing")
+            flops = 6.0 * o["params"] * o["tokens"]
+            log(f"13b {name} on {dict(zip(('data', 'model'), shape))} rank "
+                f"{o['rank']} ({o['backend']}, host-staged "
+                f"{o['host_staged']}, {o['dtype']}) step {i}"
+                f"{' (the first, traced)' if i == 0 else ' (untraced)'}: "
+                f"loss {st['loss']:.4f}, "
+                f"grad norm {st['grad_norm']:.4f}, {st['wall']:.2f}s, "
+                f"{o['tokens'] / st['wall']:.1f} tokens/s, model-FLOP "
+                f"utilisation {100 * flops / st['wall'] / BF16_PEAK_FLOPS:.3f}"
+                f"% (6 x {o['params']} parameters x {o['tokens']} tokens, "
+                f"both ranks' work, over one card's 989 TFLOP/s); held "
+                f"{o['held']} parameters, drawn in {o['init_s']:.1f}s; "
+                f"memory resident {st['resident_bytes']} B, peak "
+                f"{st['peak_bytes']} B; bytes to the collectives "
+                f"{json.dumps(st['sent'])}, layout {st['layout']} B; "
+                f"launches {json.dumps(st['launches'])}"
+                + ("; device busy " + ("not measured" if st["busy"] is None
+                                       else f"{100 * st['busy']:.1f}%")
+                   + "; scans' device time " + (json.dumps(
+                       st["scan_device_ms"]) if st["scan_device_ms"]
+                       else "not measured") if i == 0 else ""))
+    train_outs = outs
+    losses = {tuple(round(st["loss"], 6) for st in o["steps"])
+              for o in outs}
+    check(len(losses) == 1, f"13b: the ranks' losses differ: {losses}")
+    by_path["sharded_train_13b"] = {k: sum(st["launches"][k] for o in outs
+                                           for st in o["steps"])
+                                    for k in wrappers()}
+    log(f"13b took {time.perf_counter() - t:.1f}s, process start included")
+
+    t = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    outs = run_world("chip_smoke:mesh_check_rank", 2,
+                     args=(F32_TRAIN, (1, 2), F32_TRAIN_ROWS, device),
+                     backend="gloo", timeout_s=600)
+    for o in outs:
+        check(not on_card or (o["fwd_shapes"] == [o["shard"]]
+                              and o["bwd_shapes"] == [o["shard"]]),
+              f"13c rank {o['rank']}: the sharded step's scan shapes "
+              f"{o['fwd_shapes']} / {o['bwd_shapes']}, want {o['shard']}")
+        log(f"13c (float32, {F32_TRAIN}, {F32_TRAIN_ROWS[0]} x "
+            f"{F32_TRAIN_ROWS[1]} tokens) rank {o['rank']}: against the "
+            f"unsharded port on the card, loss {o['loss']:.6f} "
+            f"({o['loss_rel']:.3g} relative), grad norm "
+            f"{o['norm_rel']:.3g}, worst gradient {o['grad_worst']} "
+            f"{o['grad_rel']:.3g}, worst parameter {o['param_worst']} "
+            f"{o['param_rel']:.3g} over {o['leaves']} leaves (limit "
+            f"{SHARD_TRAIN_REL}); the sharded step's scan shapes "
+            f"{o['fwd_shapes']} / {o['bwd_shapes']}, launches "
+            f"{json.dumps(o['launches'])} (the unsharded gradient pass's "
+            f"{json.dumps(o['ref_launches'])}); peak {o['peak_bytes']} B; "
+            f"collectives {json.dumps(o['sent'])}, layout {o['layout']} B; "
+            f"sharded step with its check {o['wall']:.1f}s, with the "
+            f"reference {o['total_s']:.1f}s")
+    by_path["sharded_train_13c"] = {k: sum(o["launches"][k] for o in outs)
+                                    for k in wrappers()}
+    log(f"13c took {time.perf_counter() - t:.1f}s, process start included")
+
+    t = time.perf_counter()
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    outs = run_world("chip_smoke:mesh_smoke_rank", 4,
+                     args=(device, str(MESH_TRAIN_DIR)), backend="gloo",
+                     timeout_s=600)
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    for o in outs:
+        for arch in MESH_TRAIN_SMOKE:
+            r = o[arch]
+            log(f"13d {arch} smoke (f32) on (2, 2) rank {o['rank']}: loss "
+                f"{r['loss']:.6f} ({r['loss_rel']:.3g}), norm "
+                f"{r['norm_rel']:.3g}, worst gradient {r['grad_rel']:.3g} "
+                f"({r['grad_worst']}), worst parameter {r['param_rel']:.3g}"
+                f" ({r['param_worst']}); the sharded step's launches "
+                f"{json.dumps(r['launches'])} (the unsharded gradient "
+                f"pass's {json.dumps(r['ref_launches'])})")
+        tr = o["trainer"]
+        log(f"13d trainer rank {o['rank']}: (2, 2), failure at step 3, "
+            f"resize onto (1, 4), resumed: steps {tr['steps']}, losses "
+            f"within {tr['worst_rel']:.3g} relative of the uninterrupted "
+            f"(2, 2) run's; {tr['clean_s']:.1f}s clean, "
+            f"{tr['resumed_s']:.1f}s resumed; launches to the failure and "
+            f"resumed {json.dumps(tr['launches'])} (the uninterrupted "
+            f"run's {json.dumps(tr['clean_launches'])}); compressed "
+            f"all-reduces on CUDA = CPU: {json.dumps(o['compressed'])}")
+    by_path["sharded_train_13d"] = {
+        k: sum(o[a]["launches"][k] for o in outs for a in MESH_TRAIN_SMOKE)
+        for k in wrappers()}
+    by_path["sharded_trainer_13d"] = {
+        k: sum(o["trainer"]["launches"][k] for o in outs) for k in wrappers()}
+    log(f"13d took {time.perf_counter() - t:.1f}s, process start included")
+    if not on_card:
+        return {"by_path": by_path, "at_shard": {}}
+
+    g = torch.Generator(dev).manual_seed(13)
+    la = -torch.rand(shard, generator=g, device=dev) * 0.1
+    bx = torch.randn(shard, generator=g, device=dev) * 0.1
+    s0 = torch.zeros((b, shard[2]), device=dev)
+    fwd = hold_scan(la, bx, s0, "13b rank", 10, 3)
+    from repro_torch.kernels.ssm_scan.ops import scan_forward
+    states = scan_forward(la, bx, s0)
+    del bx
+    gr = torch.randn(shard, generator=g, device=dev)
+    bwd = hold_scan_bwd(la, states, s0, gr, "a 13b rank's shape "
+                        f"{list(shard)}", 10, 2)
+    del la, states, gr, s0
+    torch.cuda.empty_cache()
+    log(f"phase 13 took {time.perf_counter() - t13:.1f}s; launches "
+        f"by path: {json.dumps(by_path)}")
+    # each rank's launches in each 13b step, as counted there
+    per_step = {k: [[st["launches"][k] for st in o["steps"]]
+                    for o in sorted(train_outs, key=lambda o: o["rank"])]
+                for k in ("ssm_scan", "ssm_scan_bwd")}
+    return {"by_path": by_path, "at_shard": {
+        "ssm_scan": {"shape": list(shard),
+                     "launches_per_rank_step": per_step["ssm_scan"], **fwd},
+        "ssm_scan_bwd": {"shape": list(shard),
+                         "launches_per_rank_step": per_step["ssm_scan_bwd"],
+                         **bwd}}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2755,10 +3430,16 @@ def main() -> int:
             k["train_step_device_ms"] = trained["scan_ms_in_step"][k["name"]]
     log(f"phase 10 took {time.perf_counter() - t10:.1f}s")
     done("phase 10 (training)")
+    torch.cuda.empty_cache()
+    mesh_train = phase_mesh_train(dev)
+    for k in kernels:
+        if k["name"] in mesh_train["at_shard"]:
+            k["at_sharded_train_shape"] = mesh_train["at_shard"][k["name"]]
+    done("phase 13 (training on a mesh)")
     by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
                **base["by_path"], **meshed["by_path"], **fam["by_path"],
                **sharded["by_path"], **train_smoke, **trained["by_path"],
-               **lifecycle["by_path"]}
+               **lifecycle["by_path"], **mesh_train["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

@@ -1,4 +1,7 @@
-"""Checkpoints of nested dicts of tensors (PyTorch port of
+"""Checkpoints of nested dicts of tensors, sharded or not (PyTorch port of
 ``repro.checkpoint``)."""
 
-from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401
+from repro_torch.checkpoint.manager import (  # noqa: F401
+    CheckpointManager,
+    reshard,
+)

@@ -16,8 +16,16 @@ snapshot before the writer thread starts, so the caller may update the
 tensors in place at once.  bfloat16 leaves are written as their 2-byte
 bits (numpy void ``V2``, as ``np.save`` stores JAX's bfloat16) with
 "bfloat16" in the manifest, and restored by that dtype.  (The JAX
-package's restore cannot read such a leaf back: ROADMAP C.)  Resharding
-onto another mesh (``reshard``) waits for ROADMAP A11c.
+package's restore cannot read such a leaf back: ROADMAP C.)
+
+Sharded trees (each leaf this rank's block on a ``launch.mesh.Mesh``)
+pass ``shardings=(mesh, specs)``, ``specs`` a tree of spec tuples like
+the tree: ``save`` gathers the full leaves (``unshard_tree``, one leaf at
+a time) and rank 0 writes them, in the same files and manifest, then
+every rank meets at a barrier; ``restore`` gives each rank its block for
+a target mesh and specs, whatever mesh wrote the files (JAX's
+``restore(shardings=)``).  ``reshard`` moves a live tree between two
+meshes over the same world.
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.models.sharding import (block, gather_leaf, mesh_coords,
+                                         shard_slices)
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -85,10 +97,27 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Dict[str, Any]) -> str:
+    def save(self, step: int, tree: Dict[str, Any],
+             shardings: Optional[Tuple[Any, Dict[str, Any]]] = None) -> str:
         """Write ``tree`` (a nested dict of tensors or arrays) as ``step``.
-        Returns the step's directory."""
+        With ``shardings=(mesh, specs)`` the leaves are this rank's blocks:
+        every rank gathers each full leaf, rank 0 writes (synchronously),
+        then all meet at a barrier.  Returns the step's directory."""
         self.wait()
+        if shardings is not None:
+            mesh, specs = shardings
+            flat = dict(_leaves(specs))
+            host = []
+            with torch.no_grad():
+                for key, leaf in _leaves(tree):
+                    full = gather_leaf(leaf, flat[key], mesh)
+                    if mesh.rank == 0:
+                        host.append((key, *_to_host(full)))
+                    del full
+            if mesh.rank == 0:
+                self._write(step, host)
+            dist.barrier()
+            return self._step_dir(step)
         # snapshot on the host BEFORE going async
         host = [(key, *_to_host(leaf)) for key, leaf in _leaves(tree)]
         if self.async_save:
@@ -151,13 +180,17 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, like: Dict[str, Any], step: Optional[int] = None,
-                device=None, verify: bool = True) -> Dict[str, Any]:
+                device=None, verify: bool = True,
+                shardings: Optional[Tuple[Any, Dict[str, Any]]] = None
+                ) -> Dict[str, Any]:
         """Restore into the structure of ``like`` (a nested dict whose
         leaves are only read for their device): each leaf with the dtype
         its manifest records, on ``device``, or else on the device of
-        ``like``'s leaf (the CPU for a leaf that is not a tensor).
-        ``verify`` checks each file's sha256 and raises ``IOError`` on a
-        mismatch."""
+        ``like``'s leaf (the CPU for a leaf that is not a tensor).  With
+        ``shardings=(mesh, specs)`` each leaf is this rank's block of it on
+        ``mesh`` (the file read through a memory map, only the block
+        copied), on ``device`` or else the mesh's device.  ``verify``
+        checks each file's sha256 and raises ``IOError`` on a mismatch."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -165,6 +198,18 @@ class CheckpointManager:
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        if shardings is not None:
+            mesh, specs = shardings
+            flat = dict(_leaves(specs))
+            coords = mesh_coords(mesh)
+            device = device if device is not None else mesh.device
+
+        def read(fp, key):
+            if shardings is None:
+                return np.load(fp)
+            arr = np.load(fp, mmap_mode="r")
+            return np.array(arr[shard_slices(arr.shape, flat[key], mesh,
+                                             coords)])
 
         def load(sub, prefix):
             out = {}
@@ -180,7 +225,7 @@ class CheckpointManager:
                     raise IOError(f"checkpoint corruption in {fp}")
                 dev = device if device is not None else (
                     v.device if isinstance(v, torch.Tensor) else "cpu")
-                out[k] = _from_host(np.load(fp), meta["dtype"]).to(dev)
+                out[k] = _from_host(read(fp, key), meta["dtype"]).to(dev)
             return out
 
         return load(like, ())
@@ -193,3 +238,25 @@ class CheckpointManager:
         steps = self.steps()
         for s in steps[: max(0, len(steps) - self.keep)]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+
+def reshard(tree: Dict[str, Any], specs: Dict[str, Any], mesh,
+            new_specs: Dict[str, Any], new_mesh) -> Dict[str, Any]:
+    """Elastic re-mesh of a live tree: its leaves, this rank's blocks under
+    ``specs`` on ``mesh``, gathered whole one at a time and cut to this
+    rank's blocks under ``new_specs`` on ``new_mesh``, a mesh over the same
+    world (a torch world cannot grow: (2, 2) -> (1, 4), say).  On
+    ``new_mesh``'s device."""
+    coords = mesh_coords(new_mesh)
+
+    def move(t, sp, nsp):
+        with torch.no_grad():
+            full = gather_leaf(t, sp, mesh)
+            return block(full, nsp, new_mesh, coords).to(new_mesh.device)
+
+    def walk(t, sp, nsp):
+        if isinstance(t, dict):
+            return {k: walk(t[k], sp[k], nsp[k]) for k in t}
+        return move(t, sp, nsp)
+
+    return walk(tree, specs, new_specs)

@@ -2,4 +2,4 @@
 substrate's serving and training steps and shape cells (with their
 specs on a mesh), the TCQ serving launcher, and the meshes of ranks
 (``mesh.py``, ``world.py``) the sharded TCQ pipeline and the sharded LM
-serving run on.  Training on a mesh is ROADMAP A11c."""
+serve and train on."""

@@ -10,7 +10,9 @@ pipeline reduces over (``model``: the edge shards of one lane group;
 computes on, and the collectives it needs.  The LM's spec functions
 (``models/transformer.py::param_pspecs``, ``launch/shapes.py``) read only
 ``axis_names`` and ``shape``, so a plain stand-in with those two fields
-serves them without a process group.
+serves them without a process group.  ``all_gather`` and ``psum`` are the
+collectives the sharded LM trains through: autograd Functions whose
+adjoints are a reduce-scatter and a psum.
 
 The backend is always the caller's, never picked here:
 
@@ -235,6 +237,33 @@ class Mesh:
         dist.reduce_scatter_tensor(out, x, group=group)
         return out.to(t.device)
 
+    def scatter_dim(self, t: torch.Tensor, group, dim: int) -> torch.Tensor:
+        """Sum ``t`` over ``group`` and keep this member's block of ``dim``
+        (the inverse layout of :meth:`gather_dim`), summed in float32 and
+        returned in ``t``'s dtype."""
+        if dist.get_world_size(group) == 1:
+            return t
+        x = t.movedim(dim, 0).to(torch.float32).contiguous()
+        return self.reduce_scatter(x, group).movedim(0, dim).to(t.dtype)
+
+    def sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` summed over the ranks of the mesh axes ``axes`` (names):
+        one all-reduce over the world, the dp axes' group or one axis's,
+        else one per axis.  Axes of one rank are skipped."""
+        sizes = dict(zip(self.axis_names, self.shape))
+        axes = tuple(a for a in self.axis_names if a in axes and sizes[a] > 1)
+        if not axes:
+            return t
+        wide = tuple(a for a in self.axis_names if sizes[a] > 1)
+        if axes == wide:
+            return self.all_reduce(t, dist.ReduceOp.SUM)
+        dp = tuple(a for a in dp_axes(self) if sizes[a] > 1)
+        if axes == dp:
+            return self.all_reduce(t, dist.ReduceOp.SUM, self.lane_group)
+        for a in axes:
+            t = self.all_reduce(t, dist.ReduceOp.SUM, self.group(a))
+        return t
+
     def any(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is true on any rank."""
         if self.size == 1:
@@ -258,6 +287,68 @@ class Mesh:
                          else self.device)
         dist.broadcast(t, src=0)
         return float(t.item())
+
+
+# ------------------------------------------- differentiable collectives
+# The sharded LM trains with each rank differentiating its share of the
+# loss: the global loss divided by the ranks that compute the same rows
+# (``models/transformer.py::loss_fn``), so that the gradient of a leaf is
+# the sum over ranks of what each rank's backward gives it.  Under that
+# convention every collective's adjoint is its transpose, whatever
+# consumes its result: an all-gather's is a reduce-scatter, a sum's is a
+# sum, and a replicated activation carries a partial gradient that no
+# operator needs to sum on the way back (Megatron's "f" entry operator is
+# the identity both ways).  The sums over replicas happen once, on the
+# leaves (``launch/steps.py``).  Both operators are the identity on a group
+# of one rank, so the unit mesh computes what the mesh-free model does.
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, group, dim, layout):
+        ctx.mesh, ctx.group, ctx.dim, ctx.layout = mesh, group, dim, layout
+        out = mesh.gather_dim(t, group, dim)
+        if layout:
+            mesh.layout_bytes += out.nbytes
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.layout:
+            ctx.mesh.layout_bytes += g.nbytes
+        return (ctx.mesh.scatter_dim(g, ctx.group, ctx.dim), None, None,
+                None, None)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, group):
+        ctx.mesh, ctx.group = mesh, group
+        return mesh.all_reduce(t, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_reduce(g.contiguous(), dist.ReduceOp.SUM,
+                                    ctx.group), None, None)
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, group, dim: int, *,
+               layout: bool = False) -> torch.Tensor:
+    """Every member's ``t`` of ``group`` concatenated along ``dim``
+    (``Mesh.gather_dim``), differentiable: the gradient is summed over the
+    group and each member keeps its block (a reduce-scatter, in float32).
+    ``layout``: the gather assembles a leaf whose layout does not match the
+    local computation; its bytes, and its gradient's, go to
+    ``mesh.layout_bytes``."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return _AllGather.apply(t, mesh, group, dim, layout)
+
+
+def psum(t: torch.Tensor, mesh: Mesh, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (JAX's ``psum``), differentiable: the
+    gradient is summed over the group too."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return _Sum.apply(t, mesh, group)
 
 
 def mesh_shard_counts(mesh) -> Tuple[int, int]:

@@ -6,9 +6,9 @@ PyTorch counterparts of the inner ``step`` functions of
 ``build_serve_step``.  They run on the model's device (CUDA unless the
 model was made elsewhere).  A model built on a mesh
 (``Transformer(cfg, mesh=)``, its cache from ``init_cache(..., mesh=)``)
-serves sharded: every rank passes the global batch, takes its rows
-(over the dp axes where the batch splits evenly and is > 1, as the JAX
-steps' ``_bspec``) and gets the global result back.  The train step
+serves and trains sharded: every rank passes the global batch, takes its
+rows (over the dp axes where the batch splits evenly and is > 1, as the
+JAX steps' ``_bspec``) and gets the global result back.  The train step
 updates the model's parameters in place, as the serving steps (under
 ``torch.inference_mode()``) update the cache in place, where the JAX steps
 return new (donated) trees.  The batches are the JAX package's
@@ -21,6 +21,9 @@ for an encoder-decoder model; "positions" [3, B, S] for M-RoPE; "labels"
     step, opt = build_train_step(cfg)
     opt_state = opt.init(model.params.tree())
     opt_state, metrics = step(model, opt_state, batch)
+    # sharded: model = Transformer(cfg, mesh=mesh)
+    #          opt_state = opt.init(model.params.tree(), mesh=mesh,
+    #                               pspecs=model.pspecs)
 
     cache = init_cache(cfg, batch=2, s_max=4096)
     # sharded: model = Transformer(cfg, mesh=mesh)
@@ -35,9 +38,9 @@ for an encoder-decoder model; "positions" [3, B, S] for M-RoPE; "labels"
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.launch.mesh import _axsize, dp_axes
-from repro_torch.models.sharding import TP
+from repro_torch.models.sharding import TP, replicated_axes
 from repro_torch.models.transformer import Transformer, loss_fn
 from repro_torch.optim import make_optimizer
 
@@ -62,6 +65,14 @@ def _leaves(tree: dict) -> list:
             for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
+def _leaves_like(tree: dict, other: dict) -> list:
+    """``other``'s leaves in the order ``_leaves(tree)`` lists ``tree``'s
+    (matched by key: ``params.tree()`` lists sub-dicts first)."""
+    return [x for k, v in tree.items()
+            for x in (_leaves_like(v, other[k]) if isinstance(v, dict)
+                      else [other[k]])]
+
+
 def _like(tree: dict, leaves) -> dict:
     """A nested dict shaped like ``tree`` holding ``leaves`` in order."""
     it = iter(leaves)
@@ -73,79 +84,125 @@ def _like(tree: dict, leaves) -> dict:
     return build(tree)
 
 
+def grads_of(model: Transformer, batch: dict, n_micro: int = 1):
+    """(loss, gradients): ``loss_fn``'s value and its gradient with respect
+    to every parameter of ``model`` (a list in ``params.tree()`` leaf
+    order), over ``n_micro`` microbatches summed in float32 and divided by
+    ``n_micro`` (with one, in the parameters' dtype).  The parameters are
+    made trainable (``requires_grad_``) on first use.
+
+    On a mesh every rank passes the global batch.  A rank's backward gives
+    each leaf the gradient of its share of the loss; a leaf sharded over an
+    axis has its sum over that axis from the reduce-scatters of its gathers
+    (FSDP over ``data``, layouts over ``model``), and a leaf replicated
+    over an axis (trap 2: no ``embed`` dimension, replicated over pod x
+    data; trap 1: every leaf replicated over ``model``) is summed over it
+    here, never both.  The result is each leaf's global gradient, in this
+    rank's block."""
+    model.requires_grad_(True)
+    params = model.params.tree()
+    leaves = _leaves(params)
+    if n_micro > 1:
+        gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                            device=p.device) for p in leaves]
+        lsum = 0.0
+        for mb in _split_micro(batch, n_micro):
+            loss, _ = loss_fn(model, mb)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for acc, g in zip(gsum, grads):
+                if g is not None:
+                    acc.add_(g)
+            lsum = lsum + loss.detach()
+            del grads, loss
+        grads = [g / n_micro for g in gsum]
+        del gsum
+        loss = lsum / n_micro
+    else:
+        loss, _ = loss_fn(model, batch)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))]
+        loss = loss.detach()
+    if model.mesh is not None:
+        _sum_replicas(model.mesh, grads, _leaves_like(params, model.pspecs))
+    return loss, grads
+
+
+@torch.no_grad()
+def _sum_replicas(mesh, grads: list, specs: list) -> None:
+    """Sum each gradient over the axes its leaf is replicated on, in
+    place: one float32 all-reduce for all the leaves that share those
+    axes."""
+    buckets: dict = {}
+    for i, sp in enumerate(specs):
+        axes = replicated_axes(sp, mesh)
+        if axes:
+            buckets.setdefault(axes, []).append(i)
+    for axes, idx in buckets.items():
+        flat = mesh.sum_over(torch.cat([grads[i].reshape(-1).to(
+            torch.float32) for i in idx]), axes)
+        at = 0
+        for i in idx:
+            n = grads[i].numel()
+            grads[i] = flat[at:at + n].view(grads[i].shape).to(
+                grads[i].dtype)
+            at += n
+
+
+def _grad_norm(grads: list, mesh=None, specs=None) -> torch.Tensor:
+    """The float32 global norm of ``grads``; on a mesh of several ranks
+    (``specs`` the leaves' specs, in order) each leaf's sum of squares
+    counted once: summed over the ranks that hold its blocks, never over
+    its replicas."""
+    if mesh is None or mesh.size == 1:
+        return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                              for g in grads))
+    sq = torch.stack([torch.sum(g.to(torch.float32) ** 2) for g in grads])
+    first = torch.tensor([all(mesh.coords[a] == 0
+                              for a in replicated_axes(sp, mesh))
+                          for sp in specs], device=sq.device)
+    sq = mesh.all_reduce(torch.where(first, sq, torch.zeros_like(sq)),
+                         dist.ReduceOp.SUM)
+    return torch.sqrt(sq.sum())
+
+
+@torch.no_grad()
+def apply_grads(model: Transformer, opt, opt_state: dict, grads: list):
+    """The optimizer's update from ``grads`` (``grads_of``'s) added to
+    every parameter of ``model`` in place (``p + u.to(p.dtype)``; on a mesh
+    each rank updates its blocks).  Returns (new opt_state, the float32
+    global gradient norm)."""
+    params = model.params.tree()
+    mesh = model.mesh
+    gnorm = _grad_norm(grads, mesh, _leaves_like(params, model.pspecs)
+                       if mesh is not None else None)
+    updates, opt_state = opt.update(_like(params, grads), opt_state, params,
+                                    mesh=mesh, pspecs=model.pspecs)
+    for p, u in zip(_leaves(params), _leaves(updates)):
+        p.add_(u.to(p.dtype))
+    return opt_state, gnorm
+
+
 def build_train_step(cfg, n_micro: int = 1, lr: float = 3e-4):
     """Returns (step, optimizer): the config's optimizer
     (``optim.make_optimizer``) and
 
         step(model, opt_state, batch) -> (opt_state, {"loss", "grad_norm"})
 
-    which takes the gradient of ``loss_fn`` over ``n_micro`` microbatches
-    (summed in float32 and divided by ``n_micro``; with one, in the
-    parameters' dtype), its float32 global norm, and adds the optimizer's
-    update to every parameter in place (``p + u.to(p.dtype)``).  The
-    parameters are made trainable (``requires_grad_``) on first use."""
+    which is ``grads_of`` (the gradient of ``loss_fn`` over ``n_micro``
+    microbatches) then ``apply_grads`` (the float32 global norm, and the
+    optimizer's update added to every parameter in place).  On a mesh
+    (``Transformer(cfg, mesh=)``) every rank passes the global batch and
+    an ``opt_state`` from ``opt.init(params, mesh=model.mesh,
+    pspecs=model.pspecs)``, and gets the global loss and norm."""
     opt = make_optimizer(cfg, lr=lr)
 
     def step(model: Transformer, opt_state: dict, batch: dict):
-        model.requires_grad_(True)
-        params = model.params.tree()
-        leaves = _leaves(params)
-        if n_micro > 1:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in leaves]
-            lsum = 0.0
-            for mb in _split_micro(batch, n_micro):
-                loss, _ = loss_fn(model, mb)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-                for acc, g in zip(gsum, grads):
-                    if g is not None:
-                        acc.add_(g)
-                lsum = lsum + loss.detach()
-                del grads, loss
-            grads = [g / n_micro for g in gsum]
-            del gsum
-            loss = lsum / n_micro
-        else:
-            loss, _ = loss_fn(model, batch)
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(leaves, torch.autograd.grad(
-                         loss, leaves, allow_unused=True))]
-            loss = loss.detach()
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                                   for g in grads))
-            updates, opt_state = opt.update(_like(params, grads), opt_state,
-                                            params)
-            del grads
-            for p, u in zip(leaves, _leaves(updates)):
-                p.add_(u.to(p.dtype))
+        loss, grads = grads_of(model, batch, n_micro)
+        opt_state, gnorm = apply_grads(model, opt, opt_state, grads)
         return opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return step, opt
-
-
-def _rows(model: Transformer, batch: dict):
-    """(this rank's rows of ``batch``, whether they are a block of it):
-    on a mesh, a block over the dp axes when the global batch is > 1 and
-    splits evenly over them, else every row (the JAX steps' ``_bspec``)."""
-    mesh = model.mesh
-    if mesh is None:
-        return batch, False
-    x = batch["embeds"] if "embeds" in batch else batch["tokens"]
-    b, n = x.shape[0], _axsize(mesh, dp_axes(mesh))
-    if b <= 1 or b % n or n == 1:
-        return batch, False
-    lo, hi = mesh.lane_index * (b // n), (mesh.lane_index + 1) * (b // n)
-
-    def rows(k, t):
-        if t.dim() == 0:
-            return t
-        if k == "positions" and t.dim() == 3:      # M-RoPE [3, B, S]
-            return t[:, lo:hi]
-        return t[lo:hi]
-
-    return {k: rows(k, t) if isinstance(t, torch.Tensor) else t
-            for k, t in batch.items()}, True
 
 
 def _global_rows(model: Transformer, t: torch.Tensor, split: bool):
@@ -187,7 +244,8 @@ def prefill_step(model: Transformer, batch: dict, cache: dict):
     for sub in cache.values():
         for t in sub.values():
             t.zero_()
-    batch, split = _rows(model, batch)
+    batch, rows = model.rows_of(batch)
+    split = rows is not None
     hidden, _, cache = model(batch, mode="prefill", cache=cache)
     logits = _whole_vocab(model, model.logits_from_hidden(hidden[:, -1:, :]))
     return _global_rows(model, logits, split), cache
@@ -205,7 +263,8 @@ def _decode(model: Transformer, cache: dict, batch: dict):
         batch = {**batch, "positions": torch.full(
             shape, int(batch["cache_index"]), dtype=torch.int32,
             device=x.device)}
-    batch, split = _rows(model, batch)
+    batch, rows = model.rows_of(batch)
+    split = rows is not None
     hidden, _, cache = model(batch, mode="decode", cache=cache)
     return model.logits_from_hidden(hidden), split, cache
 

@@ -176,7 +176,13 @@ def attention(p: dict, x: torch.Tensor, cfg, spec, positions,
 
     On a mesh (``tp``): ``wq`` is column-parallel by heads, ``wk``/``wv``
     replicated, ``wo`` row-parallel with a sum over ``model``; a rank's q
-    heads [r H/m, (r+1) H/m) read kv head j // (H/KV).  A column block
+    heads [r H/m, (r+1) H/m) read kv head j // (H/KV).  (Trap 1 of
+    training on a mesh: ``wk``/``wv`` are replicated over ``model`` but a
+    rank uses only the kv heads its q heads read, so each rank's gradient
+    of them is partial.  The train step sums every leaf replicated over
+    ``model`` over it, which is right for all of them here: a rank
+    differentiates its share of the loss, so even a norm scale used
+    before the split gets a partial gradient, ``launch/mesh.py``.)  A column block
     that splits a head is gathered first.  The cache is the rank's block:
     split by kv heads (local attention), whole, or, with
     ``tp.seq_split``, by sequence.  Then a prefill from position 0 writes

@@ -23,7 +23,10 @@ Expert parallelism (``tp``, ``models/sharding.py``): a rank holds a
 contiguous block of the experts.  Every rank routes every token with the
 replicated router (the same gates, dispatch, capacity and aux), runs only
 its own experts' slots, adds their rows into [T, d] and sums the partial
-outputs over ``model``; the shared expert shards like the dense FFN.
+outputs over ``model``; the shared expert shards like the dense FFN.  In
+the backward pass the router, replicated over ``model``, gets each rank's
+share of the gradient (its experts' gates, and its share of the aux), which
+the train step sums over ``model``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.launch.mesh import all_gather
 from repro_torch.models.layers import activation
 from repro_torch.models.mlp import mlp
 from repro_torch.models.sharding import NO_TP, TP
@@ -54,19 +58,28 @@ def capacity(tokens: int, cfg) -> int:
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg,
             tp: TP = NO_TP) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d].  Returns (out [B, S, d], aux f32 scalar)."""
+    """x: [B, S, d].  Returns (out [B, S, d], aux f32 scalar).  When x is
+    this rank's block of the batch's rows (``tp.batch_rows``), aux is its
+    share over the dp ranks, which ``loss_fn`` sums (trap 3: an aux of the
+    whole batch, routed as one group on every dp rank, enters the loss
+    once): the global aux over their number, or, routing each row as its
+    own group, this rank's groups' aux over the global batch."""
     if not cfg.moe_grouped_dispatch and tp.batch_rows is not None:
         # one routing group over the global batch: route every rank's rows
         # (the capacity counts them all), keep this rank's
         a0, a1 = tp.batch_rows
-        xg = tp.mesh.gather_dim(x, tp.mesh.lane_group, 0)
+        xg = all_gather(x, tp.mesh, tp.mesh.lane_group, 0)
         out, aux = _moe_tokens(p, xg, cfg, tp)
-        return out[a0:a1], aux
-    if cfg.moe_grouped_dispatch and x.shape[0] > 1:
+        out = out[a0:a1]
+    elif cfg.moe_grouped_dispatch and x.shape[0] > 1:
         outs, auxs = zip(*(_moe_tokens(p, x[i:i + 1], cfg, tp)
                            for i in range(x.shape[0])))
-        return torch.cat(outs, 0), torch.stack(auxs).mean()
-    return _moe_tokens(p, x, cfg, tp)
+        out, aux = torch.cat(outs, 0), torch.stack(auxs).mean()
+    else:
+        out, aux = _moe_tokens(p, x, cfg, tp)
+    if tp.batch_rows is not None:
+        aux = aux / tp.mesh.lane_shards
+    return out, aux
 
 
 def route(p: dict, xt: torch.Tensor, cfg):

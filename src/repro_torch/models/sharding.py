@@ -14,7 +14,8 @@ reads from its parameters' local shapes whether a leaf is split over
 ``model`` (its block is smaller than the config's dimension) and sums its
 partial products with :meth:`TP.reduce`; :data:`NO_TP` (one shard) makes
 every method the identity, so the mesh-free path computes what it always
-has.
+has.  The collectives are differentiable (``launch/mesh.py``): a sharded
+model trains through the same layers.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
+
+from repro_torch.launch.mesh import all_gather, psum
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -68,11 +70,19 @@ def block(t, spec, mesh, coords: Dict[str, int]):
 
 def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The full leaf from every rank's block (all-gathers over each
-    sharded dimension's group)."""
+    sharded dimension's group; differentiable, ``launch.mesh.all_gather``)."""
     for i, entry in enumerate(spec):
         if entry is not None:
-            t = mesh.gather_dim(t, mesh.group(entry), i)
+            t = all_gather(t, mesh, mesh.group(entry), i)
     return t
+
+
+def replicated_axes(spec, mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` (of more than one rank) that a leaf of
+    ``spec`` is not split over: it has a replica on each of their ranks."""
+    named = {a for entry in spec for a in _axes(entry)}
+    return tuple(a for a, n in zip(mesh.axis_names, mesh.shape)
+                 if a not in named and n > 1)
 
 
 class TP:
@@ -98,24 +108,24 @@ class TP:
 
     def reduce(self, t: torch.Tensor, split: bool = True) -> torch.Tensor:
         """Sum partial products over ``model`` (in float32, rounded once to
-        ``t``'s dtype), when ``split`` says the reduction was split."""
+        ``t``'s dtype), when ``split`` says the reduction was split; the
+        gradient is summed over ``model`` too (``launch.mesh.psum``)."""
         if self.m == 1 or not split:
             return t
-        out = self.mesh.all_reduce(t.to(torch.float32), dist.ReduceOp.SUM,
-                                   self.mesh.model_group)
+        out = psum(t.to(torch.float32), self.mesh, self.mesh.model_group)
         return out.to(t.dtype)
 
     def gather(self, t: torch.Tensor, dim: int,
                layout: bool = False) -> torch.Tensor:
-        """Every model shard's ``t`` concatenated along ``dim``.  ``layout``:
-        the gather exists because a leaf's layout does not match the local
-        computation (GSPMD's reshard); its bytes go to ``layout_bytes``."""
+        """Every model shard's ``t`` concatenated along ``dim``; its
+        gradient is reduce-scattered back (``launch.mesh.all_gather``).
+        ``layout``: the gather exists because a leaf's layout does not match
+        the local computation (GSPMD's reshard); its bytes, both ways, go to
+        ``layout_bytes``."""
         if self.m == 1:
             return t
-        out = self.mesh.gather_dim(t, self.mesh.model_group, dim)
-        if layout:
-            self.mesh.layout_bytes += out.nbytes
-        return out
+        return all_gather(t, self.mesh, self.mesh.model_group, dim,
+                          layout=layout)
 
     def full(self, t: torch.Tensor, dim: int, n_global: int) -> torch.Tensor:
         """``t`` whole along ``dim``: gathered (a layout gather) when this

@@ -18,7 +18,9 @@ row-parallel, and the scan runs on the rank's [B, S, (d_inner/m) x
 d_state].  ``in_proj``'s JAX block ("mamba2x": a contiguous block of the
 2 x d_inner columns) is not "x channels r and z channels r", so it is
 gathered over ``model`` first, as GSPMD would, and the rank takes its x
-and z slices.
+and z slices.  Training runs the same code: the gather's gradient is
+reduce-scattered back to the JAX blocks, and the scan's forward and
+backward kernels run on the rank's channel shard.
 """
 
 from __future__ import annotations

@@ -34,8 +34,11 @@ serves on them: each sub-layer's ``embed`` dimensions are gathered over
 ``data`` before use, and the layers compute tensor- and expert-parallel
 over ``model`` (``models/sharding.py``).  Its forward takes the rank's
 rows of the batch and a cache from ``init_cache(..., mesh=)``; the steps
-(``launch/steps.py``) slice the rows and gather the results.  Training on
-a mesh is ROADMAP A11c.
+(``launch/steps.py``) slice the rows and gather the results.  It trains
+too: ``loss_fn`` takes the global batch on every rank and differentiates
+this rank's share of the global loss through the differentiable
+collectives (``launch/mesh.py``); under remat each sub-layer gathers its
+``embed`` blocks again in the backward pass.
 """
 
 from __future__ import annotations
@@ -45,10 +48,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.otcd import resolve_device
+from repro_torch.launch.mesh import _axsize, all_gather, dp_axes
 from repro_torch.models.attention import attention
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import norm, softcap
@@ -457,13 +462,14 @@ class Transformer(nn.Module):
         def fsdp(t, spec):
             for i, a in enumerate(spec):
                 if a == "data":
-                    t = mesh.gather_dim(t, mesh.data_group, i)
+                    t = all_gather(t, mesh, mesh.data_group, i)
             return t
 
         return _map2(fsdp, tree, specs)
 
     def forward(self, batch: dict, mode: str = "train",
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None,
+                rows: Optional[Tuple[int, int]] = None):
         """batch: {"tokens" [B,S] int, or "embeds" [B,S,d] for an
         ``input_mode="embeds"`` model; optional "enc_embeds" [B,S_enc,d]
         (the encoder's input), "positions" [B,S] (or [3,B,S] for M-RoPE),
@@ -473,20 +479,21 @@ class Transformer(nn.Module):
         ``mode`` names the JAX mode: "decode" reads the cross KV from the
         cache; "train" recomputes each sub-layer in the backward pass,
         which changes no number; otherwise the cache alone decides.  On a
-        mesh, B is this rank's rows (``launch/steps.py`` slices them) and
-        the cache is ``init_cache(..., mesh=)``'s."""
+        mesh, B is this rank's rows (``rows_of`` slices them) and the cache
+        is ``init_cache(..., mesh=)``'s; to train, ``rows`` is their global
+        (start, stop) when they are a block of the batch (then ``aux`` is
+        this rank's share of it over the dp axes, see ``models/moe.py``)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
         groups, specs = _groups(cfg)
         remat = mode == "train"
-        tp, rows = NO_TP, None
+        tp, cache_rows = NO_TP, None
         if self.mesh is not None:
             if remat:
-                raise NotImplementedError(
-                    "training on a mesh (gradients reduce-scattered, "
-                    "optimizer state specs) is ROADMAP A11c")
-            tp, rows = self._layout(batch, cache)
+                tp = TP(self.mesh, batch_rows=rows)
+            else:
+                tp, cache_rows = self._layout(batch, cache)
         top = self._top("embed", "final_norm", "enc_norm")
         enc_out = None
         if cfg.encoder_layers and "enc_embeds" in batch:
@@ -509,7 +516,7 @@ class Transformer(nn.Module):
             cfg, self.params["dec"], x, positions, groups=groups,
             specs=specs, causal=True, cache=cache, cache_index=cache_index,
             enc_out=enc_out, decode=(mode == "decode"), remat=remat, tp=tp,
-            whole=self._sub_whole("dec"), rows=rows)
+            whole=self._sub_whole("dec"), rows=cache_rows)
         x = norm(x, top["final_norm"], cfg.norm)
         return x, aux, cache
 
@@ -530,6 +537,29 @@ class Transformer(nn.Module):
             return lambda gp, i: gp[f"sub{i}"]
         specs = _map(lambda sp: sp[1:], self.pspecs[stack])
         return lambda gp, i: self._whole(gp[f"sub{i}"], specs[f"sub{i}"])
+
+    def rows_of(self, batch: dict) -> Tuple[dict, Optional[Tuple[int, int]]]:
+        """(this rank's rows of the global ``batch``, their global (start,
+        stop)) on a mesh: a block over the dp axes where the batch is > 1
+        and splits evenly over them (the JAX steps' ``_bspec``; M-RoPE
+        positions [3, B, S] are cut along B); else every row and None."""
+        mesh = self.mesh
+        if mesh is None:
+            return batch, None
+        x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        b, n = x.shape[0], _axsize(mesh, dp_axes(mesh))
+        if b <= 1 or b % n or n == 1:
+            return batch, None
+        lo, hi = mesh.lane_index * (b // n), (mesh.lane_index + 1) * (b // n)
+
+        def cut(k, t):
+            if not isinstance(t, torch.Tensor) or t.dim() == 0:
+                return t
+            if k == "positions" and t.dim() == 3:      # M-RoPE [3, B, S]
+                return t[:, lo:hi]
+            return t[lo:hi]
+
+        return {k: cut(k, t) for k, t in batch.items()}, (lo, hi)
 
     def _layout(self, batch: dict, cache) -> Tuple[TP, Optional[tuple]]:
         """The model axis's context for one sharded forward (the cache's
@@ -583,7 +613,10 @@ def loss_fn(model: Transformer, batch: dict):
     "labels" [B, S]; labels < 0 are masked): the mean token NLL from an
     f32 logsumexp, plus 0.01 x the MoE load-balancing aux.  Returns (loss,
     {"nll", "aux", "tokens"}), f32 scalars, as ``repro.models.transformer
-    .loss_fn``."""
+    .loss_fn``.  On a mesh of several ranks every rank passes the global
+    batch and gets the global values (``_sharded_loss``)."""
+    if model.mesh is not None and model.mesh.size > 1:
+        return _sharded_loss(model, batch)
     hidden, aux, _ = model(batch, mode="train")
     logits = model.logits_from_hidden(hidden).to(torch.float32)
     labels = batch["labels"]
@@ -596,6 +629,63 @@ def loss_fn(model: Transformer, batch: dict):
     loss = nll.sum() / denom + 0.01 * aux
     return loss, {"nll": nll.sum() / denom, "aux": aux,
                   "tokens": mask.sum()}
+
+
+def _sharded_loss(model: Transformer, batch: dict):
+    """``loss_fn`` on a mesh.  The value is the global loss; its gradient
+    is that of this rank's share of it, so that each leaf's gradient
+    summed over the ranks (``launch/steps.py``) is the global one
+    (``launch/mesh.py`` on the convention):
+
+    * trap 3: the NLL is divided by the global count of unmasked labels
+      (summed over the dp axes), the aux (``models/moe.py``) is the rank's
+      share of it over the dp axes, and both are divided by the ranks that
+      compute the same rows: the ``model`` shards, times the dp ranks when
+      the rows are not split.  MoE's aux over the whole batch thus enters
+      the loss once, not once per dp rank;
+    * a vocabulary split over ``model``: the logsumexp takes the max and
+      the sum of exponentials over every block, and the gold logit comes
+      from the block that holds it, summed over ``model``."""
+    cfg, mesh = model.cfg, model.mesh
+    local, rows = model.rows_of(batch)
+    hidden, aux, _ = model(local, mode="train", rows=rows)
+    logits = model.logits_from_hidden(hidden).to(torch.float32)
+    labels = local["labels"].to(torch.int64)
+    mask = (labels >= 0).to(torch.float32)
+    v_loc = logits.shape[-1]
+    if v_loc < cfg.padded_vocab:
+        tp = TP(mesh)
+        top = mesh.all_reduce(logits.detach().amax(-1, keepdim=True),
+                              dist.ReduceOp.MAX,
+                              mesh.model_group)
+        lse = torch.log(tp.reduce(torch.exp(logits - top).sum(-1))) \
+            + top[..., 0]
+        idx = labels.clamp(min=0) - model.vocab_offset(v_loc)
+        here = (idx >= 0) & (idx < v_loc)
+        gold = torch.gather(logits, -1, idx.clamp(0, v_loc - 1)[..., None])
+        gold = tp.reduce(torch.where(here, gold[..., 0],
+                                     torch.zeros((), device=gold.device)))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[
+            ..., 0]
+    nll = ((lse - gold) * mask).sum()
+    count = mask.sum()
+    if rows is not None:
+        count = mesh.all_reduce(count, dist.ReduceOp.SUM,
+                                mesh.lane_group)
+    denom = torch.clamp(count, min=1.0)
+    share = nll / denom + 0.01 * aux
+    replicas = mesh.model_shards * (1 if rows is not None
+                                    else mesh.lane_shards)
+    parts = torch.stack([nll / denom, aux]).detach()
+    if rows is not None:
+        parts = mesh.all_reduce(parts, dist.ReduceOp.SUM,
+                                mesh.lane_group)
+    total = parts[0] + 0.01 * parts[1]
+    mine = share / replicas
+    return mine + (total - mine).detach(), {
+        "nll": parts[0], "aux": parts[1], "tokens": count}
 
 
 def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
@@ -783,6 +873,15 @@ def _run_sublayer(cfg, spec: LayerSpec, p, x, positions, *, causal, cache,
     return x + out, aux
 
 
+def _gathered_sublayer(whole, gp, i: int, cfg, spec: LayerSpec, x,
+                       positions, **kw):
+    """Sub-layer ``i`` of a layer group on its parameters as ``whole``
+    gathers them (over ``data`` on a mesh): under remat the gathered
+    weights are freed after the forward and gathered again for the
+    backward pass, as the JAX package's remat recomputes them."""
+    return _run_sublayer(cfg, spec, whole(gp, i), x, positions, **kw)
+
+
 def _cache_rows(cache: dict, g: int, rows, tp: TP):
     """Sub-layer caches of group ``g`` holding the batch's rows: views of
     the cache block where it holds exactly those rows (always, on a
@@ -821,8 +920,9 @@ def _stack_forward(cfg, stack_params: ParamTree, x, positions, *, groups,
     one sub-layer at a time is what lets a full-width Mamba layer, whose
     scan keeps several [B, S, d_inner * d_state] float32 tensors, train on
     one card.)  On a mesh, ``whole(group params, i)`` gathers sub-layer
-    i's parameters over ``data`` and ``rows`` places the batch's rows in
-    the cache block (``Transformer._layout``).  Returns (x, aux)."""
+    i's parameters over ``data`` (inside the remat) and ``rows`` places the
+    batch's rows in the cache block (``Transformer._layout``).  Returns
+    (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     whole = whole or (lambda gp, i: gp[f"sub{i}"])
     for g in range(groups):
@@ -834,13 +934,12 @@ def _stack_forward(cfg, stack_params: ParamTree, x, positions, *, groups,
                                                 tp)
             kw = dict(causal=causal, cache=sub_c, cache_index=cache_index,
                       enc_out=enc_out, decode=decode, tp=tp)
-            p = whole(gp, i)
             if remat:
-                x, a = checkpoint(_run_sublayer, cfg, spec, p, x, positions,
-                                  use_reentrant=False, **kw)
+                x, a = checkpoint(_gathered_sublayer, whole, gp, i, cfg, spec,
+                                  x, positions, use_reentrant=False, **kw)
             else:
-                x, a = _run_sublayer(cfg, spec, p, x, positions, **kw)
-            del p
+                x, a = _gathered_sublayer(whole, gp, i, cfg, spec, x,
+                                          positions, **kw)
             if write_back is not None:
                 write_back()
             if a is not None:

@@ -1,7 +1,9 @@
-"""Optimizers and gradient compression (PyTorch port of ``repro.optim``,
-without the sharding specs and the compressed all-reduces: ROADMAP A11c)."""
+"""Optimizers, their state specs on a mesh, and gradient compression
+(PyTorch port of ``repro.optim``)."""
 
 from repro_torch.optim.compression import (  # noqa: F401
+    compressed_psum,
+    compressed_psum_exact,
     dequantize_int8,
     quantize_int8,
 )
@@ -9,4 +11,6 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     AdamW,
     Adafactor,
     make_optimizer,
+    opt_state_pspecs,
+    state_specs,
 )

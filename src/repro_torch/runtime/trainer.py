@@ -1,18 +1,18 @@
 """Fault-tolerant training driver: checkpoint/restart, failure injection,
-straggler watchdog.
+straggler watchdog, elastic re-mesh.
 
-PyTorch port of ``repro.runtime.trainer`` on one device, where the JAX
-trainer takes a mesh.  The contract is the JAX package's:
+PyTorch port of ``repro.runtime.trainer``, on one device or on a mesh of
+ranks (``launch.mesh.Mesh``; every rank runs the same trainer).  The
+contract is the JAX package's:
 
   * every step is restart-exact: parameters and optimizer state come from
     the checkpoint, data from the stateless step-indexed pipeline;
   * failures (injected here) bounce the driver loop, which restores the
     last complete checkpoint and replays, within a restart budget;
   * the straggler watchdog flags steps slower than ``straggler_factor`` x
-    the trailing median.
-
-Elastic re-meshing (``resize``) needs training on a mesh, ROADMAP
-A11c.
+    the trailing median;
+  * ``resize(new_mesh)`` rebuilds the step for a new mesh, and the next
+    ``run()`` restores the latest checkpoint resharded onto it.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.otcd import resolve_device
 from repro_torch.launch.steps import build_train_step
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, param_pspecs
+from repro_torch.optim import state_specs
 
 
 class InjectedFault(RuntimeError):
@@ -63,41 +64,71 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Trains ``model_cfg`` on ``data`` (``SyntheticLMData``) on one device:
-    CUDA unless ``device`` names another (and raises where there is none).
-    The model starts from seed 0 on the device, or from the latest
-    checkpoint in ``tcfg.ckpt_dir``."""
+    """Trains ``model_cfg`` on ``data`` (``SyntheticLMData``): on one
+    device, CUDA unless ``device`` names another (and raises where there
+    is none), or sharded over ``mesh`` on its device.  The model starts
+    from seed 0 on the device (on a mesh, each rank's blocks of that
+    draw), or from the latest checkpoint in ``tcfg.ckpt_dir``.  On a mesh
+    every rank passes the global batch and the step takes its rows (over
+    the dp axes where they split evenly; the JAX trainer's batch layout),
+    and the checkpoints hold the full leaves, as the JAX trainer's do."""
 
     def __init__(self, model_cfg, data, tcfg: TrainerConfig,
-                 injector: Optional[FaultInjector] = None, *, device=None):
+                 injector: Optional[FaultInjector] = None, *, device=None,
+                 mesh=None):
         self.model_cfg = model_cfg
         self.tcfg = tcfg
         self.data = data
-        self.device = resolve_device(device, "Trainer")
+        if mesh is None:
+            self.device = resolve_device(device, "Trainer")
         self.injector = injector or FaultInjector()
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.metrics: List[Dict[str, Any]] = []
         self.restarts = 0
         self.straggler_flags = 0
-        self.model: Optional[Transformer] = None
-        self.step_fn, self.opt = build_train_step(model_cfg, n_micro=1,
-                                                  lr=tcfg.lr)
+        self._build(mesh)
 
     # ------------------------------------------------------------ lifecycle
+    def _build(self, mesh) -> None:
+        """The step for ``mesh`` (None: the trainer's device); the model
+        is built, or restored, by the next ``run()``."""
+        self.mesh = mesh
+        self.model: Optional[Transformer] = None
+        self.pspecs = None
+        if mesh is not None:
+            self.device = mesh.device
+            self.pspecs = param_pspecs(self.model_cfg, mesh)
+        self.step_fn, self.opt = build_train_step(self.model_cfg, n_micro=1,
+                                                  lr=self.tcfg.lr)
+
+    def _opt_init(self):
+        return self.opt.init(self.model.params.tree(), mesh=self.mesh,
+                             pspecs=self.pspecs)
+
+    def _shardings(self, opt_state):
+        """(mesh, specs) of the checkpointed tree on a mesh, else None."""
+        if self.mesh is None:
+            return None
+        return self.mesh, {"params": self.pspecs,
+                           "opt": state_specs(opt_state, self.pspecs)}
+
     def _init_state(self):
         self.model = None           # free the old model first
         gen = torch.Generator(self.device).manual_seed(0)
         self.model = Transformer(self.model_cfg, generator=gen,
-                                 device=self.device)
-        return self.opt.init(self.model.params.tree())
+                                 device=None if self.mesh else self.device,
+                                 mesh=self.mesh)
+        return self._opt_init()
 
     def _restore(self, step: int):
-        """The model and optimizer state of checkpoint ``step``."""
+        """The model and optimizer state of checkpoint ``step`` (on a
+        mesh, this rank's blocks of them, whatever mesh wrote it)."""
         if self.model is None:
             self._init_state()
         params = self.model.params.tree()
-        like = {"params": params, "opt": self.opt.init(params)}
-        tree = self.ckpt.restore(like, step=step, device=self.device)
+        like = {"params": params, "opt": self._opt_init()}
+        tree = self.ckpt.restore(like, step=step, device=self.device,
+                                 shardings=self._shardings(like["opt"]))
         with torch.no_grad():
             _copy_into(params, tree["params"])
         return tree["opt"]
@@ -145,7 +176,8 @@ class Trainer:
             if (step + 1) % self.tcfg.ckpt_every == 0 \
                     or step + 1 == self.tcfg.steps:
                 self.ckpt.save(step + 1, {"params": self.model.params.tree(),
-                                          "opt": opt_state})
+                                          "opt": opt_state},
+                               shardings=self._shardings(opt_state))
         self.ckpt.wait()
         return {"final_loss": self.metrics[-1]["loss"],
                 "steps_run": len(self.metrics),
@@ -154,9 +186,17 @@ class Trainer:
 
     # -------------------------------------------------------------- elastic
     def resize(self, new_mesh) -> None:
-        raise NotImplementedError(
-            "Trainer.resize re-meshes a sharded run: training on a mesh "
-            "is ROADMAP A11c")
+        """Elastic re-mesh, as the JAX trainer's: rebuild the step for
+        ``new_mesh``; the next ``run()`` restores the latest checkpoint
+        resharded onto it (from the start, without one).  A torch world
+        cannot grow or shrink, so ``new_mesh`` lays out the ranks this
+        trainer already runs on anew: (2, 2) -> (1, 4), say, or a
+        single-device trainer's one rank onto the unit mesh."""
+        if new_mesh is None:
+            raise ValueError("Trainer.resize needs a mesh (launch.mesh.Mesh)"
+                             " over the ranks of this world")
+        self.ckpt.wait()
+        self._build(new_mesh)
 
 
 def _copy_into(dst: Dict[str, Any], src: Dict[str, Any]) -> None:

@@ -292,15 +292,31 @@ def test_seeded_sharded_model_holds_the_blocks_of_the_unsharded_draw(
 
 
 def test_a_sharded_model_refuses_training_and_a_plain_cache(unit_mesh):
+    """A sharded model refuses a cache that is not ``init_cache(...,
+    mesh=)``'s.  It trains: on the unit mesh ``loss_fn`` and every
+    gradient equal the unsharded model's bit for bit (the differentiable
+    collectives are the identity on one rank), with no collective bytes."""
     cfg = get_smoke_config("qwen2-7b")
     model = T.Transformer(cfg, generator=torch.Generator().manual_seed(0),
                           mesh=unit_mesh)
     tokens = torch.zeros((2, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        T.loss_fn(model, {"tokens": tokens, "labels": tokens})
     with pytest.raises(ValueError, match="mesh="):
         model({"tokens": tokens}, mode="prefill",
               cache=T.init_cache(cfg, 2, 8, "cpu"))
+    plain = T.Transformer(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    batch = {"tokens": torch.arange(8).reshape(2, 4),
+             "labels": torch.arange(1, 9).reshape(2, 4)}
+    grads = []
+    for m in (model, plain):
+        m.requires_grad_(True)
+        loss, _ = T.loss_fn(m, batch)
+        loss.backward()
+        grads.append((loss, [p.grad for p in m.parameters()]))
+    (lm, gm), (lp, gp) = grads
+    assert torch.equal(lm, lp) and len(gm) == len(gp)
+    assert all(torch.equal(a, b) for a, b in zip(gm, gp))
+    assert sum(unit_mesh.sent_bytes.values()) == 0
 
 
 def test_serve_lm_example_on_two_ranks_equals_the_unsharded_port():

@@ -114,6 +114,15 @@ def test_trainer_trains_a_mamba_hybrid(tmp_path):
 
 
 def test_trainer_defaults_to_cuda_and_cannot_resize(tmp_path):
+    """A trainer defaults to CUDA; it cannot resize onto no mesh, and
+    resizes a single-device run onto the unit mesh: the next ``run()``
+    restores the latest checkpoint there and logs the losses of a run
+    that never moved, bit for bit (one rank computes what the mesh-free
+    model does)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, init_world
+
     cfg = get_smoke_config("qwen2-7b")
     data = SyntheticLMData(vocab=cfg.vocab, batch=2, seq=8)
     tcfg = TrainerConfig(steps=1, ckpt_dir=str(tmp_path))
@@ -121,8 +130,27 @@ def test_trainer_defaults_to_cuda_and_cannot_resize(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg, data, tcfg)
     tr = Trainer(cfg, data, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="mesh"):
         tr.resize(None)
+
+    moved = _tiny_trainer(tmp_path / "moved", steps=6)
+    moved.tcfg.steps = 3
+    moved.run()
+    init_world("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+               world_size=1)
+    try:
+        moved.resize(Mesh((1, 1), device="cpu"))
+        assert moved.model is None
+        moved.tcfg.steps = 6
+        moved.run()
+        assert moved.model.mesh is moved.mesh
+    finally:
+        dist.destroy_process_group()
+    clean = _tiny_trainer(tmp_path / "clean", steps=6)
+    clean.run()
+    assert [m["step"] for m in moved.metrics] == list(range(6))
+    assert [(m["loss"], m["grad_norm"]) for m in moved.metrics] == \
+        [(m["loss"], m["grad_norm"]) for m in clean.metrics]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "whisper-small",
