@@ -153,6 +153,26 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    tensors equal to the CPU world's.  Both scans are then held to their
    plain loops at a (b) rank's shape and timed;
 
+14. (run after phase 13) the journal on a mesh of ranks: phase 7's crash
+   tape, with a checkpoint after its second edge batch, through
+   ``TCQService(mesh=, wal_dir=)`` on (data, model) = (2, 1) (wave_peel on
+   each rank) and (1, 2) (the composite over segdeg), two gloo ranks
+   sharing the card: uninterrupted, then killed after the journal record
+   phase 7's crash drill names (rank 0's journal dies, every rank stops),
+   then a new world recovers (``TCQService.recover(wal_dir, mesh=)``) and
+   drains; every ticket equal to the uninterrupted world's and to phase
+   7's unsharded recovered drain bit for bit, rank 0's recovery report on
+   every rank, and no file written by another rank;
+15. the dry run (``launch/dryrun.py``) held to the card: (a) 13b's cell on
+   a shape-only mesh, each rank's bytes to each kind of collective and its
+   layout bytes equal to what 13b's ranks measured a step in this run; (b)
+   a single-iteration TCQ step of phase 3's graph live on a (1, 2) gloo
+   world on the card (psum and rs_ag) against its dry run; (c) each
+   kernel's dry-run charge at its timing shape (``dryrun_bytes`` in the
+   kernels line) against the bytes behind its bound; (d) the roofline
+   terms of a (16, 16) Jamba train cell and the tcq-mathoverflow cell, a
+   model on datasheet rates, printed;
+
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
 ``{"ok": true, ...}`` line last.
@@ -219,8 +239,8 @@ def device_ms(fn, reps: int, kernel: str, setup=None):
     without the host's launch work that CUDA events around a call also
     hold when the host is slower than the kernel.  A trace that caught no
     kernel is logged and taken once more, tracing the host too; ``trace``
-    says which reading the time is (1 or 2), and the time is None when
-    both saw none."""
+    says which reading the time is (1 or 2).  When both saw none the
+    phase fails: no time is reported from a trace that saw nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -246,7 +266,8 @@ def device_ms(fn, reps: int, kernel: str, setup=None):
         log(f"device_ms: trace {trace} of {reps} {kernel} runs caught no "
             f"such kernel; it saw {len(seen)} device kernels: "
             + "; ".join(f"{e.count} x {e.key[:60]}" for e in seen[:3]))
-    return None, None
+    raise AssertionError(f"device_ms: no trace of {reps} {kernel} runs "
+                         "caught the kernel")
 
 
 def fmt_ms(ms) -> str:
@@ -787,8 +808,11 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
     # bound: the rows with an id below S (the kernel reads no other),
     # their ids, the offsets and the output; beside it every row's
     n, nvalid = vals.shape[0], int(off[-1])
-    seg_bound, seg_by = bound(4 * nvalid * W + 4 * nvalid + 4 * (S + 1)
-                              + 4 * S * W, nvalid * W)
+
+    def seg_bytes(rows):
+        return 4 * rows * W + 4 * rows + 4 * (S + 1) + 4 * S * W
+
+    seg_bound, seg_by = bound(seg_bytes(nvalid), nvalid * W)
     seg_dense, _ = bound(4 * n * W + 4 * n + 4 * S * W, n * W)
     log(f"segdeg timed at values [{n}, {W}] -> [{S}, {W}]: {seg_ms:.4f} ms "
         f"a call (device time {fmt_ms(seg_dev)}), index_add_ {lib_ms:.4f} ms "
@@ -804,14 +828,19 @@ def phase_timing(dev, main: dict, errs: dict) -> list:
          "device_ms": peel_dev, "device_trace": peel_trace,
          "plain_ms": plain_ms, "bound_ms": peel_bound,
          "bound_by": peel_by, "dense_bound_ms": peel_dense,
-         "library_ms": None},
+         "library_ms": None,
+         "timing_shape": {"W": W, "E": tel.t.shape[0], "P": tel.num_pairs,
+                          "V": nv, "HP": tel.hp_src.shape[0]},
+         "bound_bytes_dense": dense["bytes"]},
         {"name": "segdeg", "route": "cuda",
          "source": "src/repro_torch/kernels/segdeg/csrc/segdeg.cu",
          "replaces": "src/repro/kernels/segdeg/kernel.py:109",
          "max_abs_err": errs["segdeg"], "ms": seg_ms, "device_ms": seg_dev,
          "device_trace": seg_trace,
          "plain_ms": seg_plain_ms, "bound_ms": seg_bound, "bound_by": seg_by,
-         "dense_bound_ms": seg_dense, "library_ms": lib_ms},
+         "dense_bound_ms": seg_dense, "library_ms": lib_ms,
+         "timing_shape": {"N": n, "Q": W, "S": S},
+         "bound_bytes_dense": seg_bytes(n)},
     ]
 
 
@@ -884,15 +913,17 @@ def hold_scan(la, bx, s0, what: str, reps: int, plain_reps: int) -> dict:
                               "ssm_scan_kernel")
     plain_ms = time_ms(lambda: ssm_scan_ref(la, bx, s0), plain_reps)
     nb, ns, nf = la.shape
-    bound_ms, bound_by = bound(4 * (3 * nb * ns * nf + nb * nf),
-                               3 * nb * ns * nf, F32_OPS_PER_S)
+    nbytes = 4 * (3 * nb * ns * nf + nb * nf)
+    bound_ms, bound_by = bound(nbytes, 3 * nb * ns * nf, F32_OPS_PER_S)
     log(f"ssm_scan at the {what} shape {list(la.shape)}: within "
         f"rtol=atol=1e-5 of the plain loop (max |diff| {err:.3g}); "
         f"{ms:.4f} ms a call (device time {fmt_ms(dev_ms)}), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "device_trace": trace,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "timing_shape": {"BSF": [nb, ns, nf]},
+            "bound_bytes_dense": nbytes}
 
 
 def phase_lm(dev) -> dict:
@@ -1059,6 +1090,8 @@ def drive_tape(svc, ops, tickets=None):
             if op[0] == "submit":
                 tk = s.submit(dict(op[1]))
                 tickets[tk.id] = tk
+            elif op[0] == "checkpoint":
+                s.checkpoint()
             else:
                 s.push_edges(*op[1])
 
@@ -1301,6 +1334,12 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
             f"{1e3 * csvc2.recovery_report['recover_s']:.1f} ms, "
             f"{len(done)} admissions equal the uninterrupted tape's")
         csvc2.wal.close()
+        # phase 14 runs this tape on meshes, held to these drains
+        tape = {"g0": snaps[0].state_dict(), "ops": ops, "n_rec": n_rec,
+                "clean": {i: digest(tk.result) for i, tk in clean.items()
+                          if tk.status == "done"},
+                "recovered": {i: digest(tk.result)
+                              for i, tk in done.items()}}
 
         # -- chaos: one fused failure, then one silent corruption
         # eight overlapping windows around the open loop's richest one:
@@ -1370,7 +1409,7 @@ def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"serving launches by path: {json.dumps(by_path)}")
-    return {"by_path": by_path, "capacity_qps": crep["qps"]}
+    return {"by_path": by_path, "capacity_qps": crep["qps"], "tape": tape}
 
 
 # ------------------------------------------- phase 8: the paper's baseline
@@ -1775,22 +1814,56 @@ def hold_scan_bwd(la, states, s0, g, what: str, reps: int = 0,
     nb, ns, nf = la.shape
     # reads log_a, states, g (and s0) once, writes dlog_a, dbx (and ds0)
     # once; an exp, three multiplies and an add per element
-    bound_ms, bound_by = bound(4 * (5 * nb * ns * nf + 2 * nb * nf),
-                               5 * nb * ns * nf, F32_OPS_PER_S)
+    nbytes = 4 * (5 * nb * ns * nf + 2 * nb * nf)
+    bound_ms, bound_by = bound(nbytes, 5 * nb * ns * nf, F32_OPS_PER_S)
     log(f"ssm_scan_bwd at {what}: within rtol=1e-5 (atol scaled) of the "
         f"plain loop (max |diff| {err:.3g}); {ms:.4f} ms a call (device "
         f"time {fmt_ms(dev_ms)}), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "device_trace": trace, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "timing_shape": {"BSF": [nb, ns, nf]},
+            "bound_bytes_dense": nbytes}
 
 
-def phase_train_kernel(dev) -> dict:
+SCAN_RANK_SHAPE = (2, 2_048, 131_072)   # a (1, 2) rank's channel shard
+
+
+def phase_scan_timing(dev) -> dict:
+    """The scans' standalone holds and times taken before any gloo world
+    has used the card (after one, ``torch.profiler`` in this process
+    loses kernel records: PERF.md §7): ssm_scan_bwd at the training
+    shape [2, 2,048, 262,144] (s0 = 0, as the model starts; 10a's), and
+    both scans at a (1, 2) rank's shard (12b's and 13b's), each on states
+    the forward kernel computed."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import scan_forward
+
+    gen = torch.Generator(dev).manual_seed(23)
+    out = {}
+    for key, shp in (("bwd_train", (2, 2_048, 262_144)),
+                     ("rank", SCAN_RANK_SHAPE)):
+        la = -0.1 * torch.rand(shp, generator=gen, device=dev)
+        bx = 0.1 * torch.randn(shp, generator=gen, device=dev)
+        s0 = torch.zeros((shp[0], shp[2]), device=dev)
+        if key == "rank":
+            out["fwd_rank"] = hold_scan(la, bx, s0, "(1, 2) rank's", 10, 3)
+        states = scan_forward(la, bx, s0)
+        del bx
+        g = torch.randn(shp, generator=gen, device=dev)
+        out["bwd_rank" if key == "rank" else key] = hold_scan_bwd(
+            la, states, s0, g, f"{list(shp)}", 10, 2)
+        del la, states, g, s0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_kernel(dev, at_train: dict) -> dict:
     """10a: the reverse scan's kernel held to its plain loop at ragged
-    shapes (F not a multiple of 256, S = 1 and S = 3, s0 != 0) and at the
-    training shape [2, 2,048, 262,144] (s0 = 0, as the model starts),
-    on states the forward kernel computed; timed at the training shape."""
+    shapes (F not a multiple of 256, S = 1 and S = 3, s0 != 0), on states
+    the forward kernel computed; its hold and times at the training shape
+    [2, 2,048, 262,144] are ``at_train`` (``phase_scan_timing``)."""
     import torch
     from repro_torch.kernels.ssm_scan.ops import scan_forward
 
@@ -1809,9 +1882,6 @@ def phase_train_kernel(dev) -> dict:
         err = max(err, hold_scan_bwd(*inputs(b, s, f, False),
                                      f"[{b}, {s}, {f}], s0 != 0")
                   ["max_abs_err"])
-    at_train = hold_scan_bwd(*inputs(2, 2_048, 262_144, True),
-                             "the training shape [2, 2048, 262144]", 10, 2)
-    torch.cuda.empty_cache()
     return {"name": "ssm_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:67",
@@ -2382,7 +2452,8 @@ def f32_twin(case) -> tuple:
             2 * p, s_enc, F32_STEPS)
 
 
-def serve_case(case, mesh=None, dev=None, forced=None) -> dict:
+def serve_case(case, mesh=None, dev=None, forced=None,
+               logits: bool = False) -> dict:
     """One config of ``SHARDED_LM`` served through ``prefill_step`` and
     ``serve_step``: on ``mesh`` (sharded), else unsharded on ``dev``.
     Seeded weights drawn on the card (one full leaf at a time on a mesh),
@@ -2392,7 +2463,8 @@ def serve_case(case, mesh=None, dev=None, forced=None) -> dict:
     tokens) the steps are teacher-forced: each is fed the unsharded run's
     token, and the warm-up is a 64-token prefill.  A float32 model steps
     through ``decode_logits`` (``serve_step``'s forward, with its logits)
-    and records each step's logits.  Returns plain values: tokens (the
+    and records each step's logits, as a bfloat16 model does with
+    ``logits``.  Returns plain values: tokens (the
     prefill's greedy token, then each step's), the prefill's last logits
     and the steps' (the vocabulary, not its padding), times,
     launches, the bytes this rank handed to collectives and gathered for
@@ -2466,7 +2538,7 @@ def serve_case(case, mesh=None, dev=None, forced=None) -> dict:
     ref = (torch.tensor(forced, dtype=torch.int32, device=dev)
            if forced is not None else None)
     step_logits = None
-    if cfg.dtype == "float32":
+    if cfg.dtype == "float32" or logits:
         (toks, step_logits), dec_s, n_dec_run = run_path(
             lambda: logit_steps(tok0, ref))
     elif ref is not None:       # each step fed the unsharded run's token
@@ -2521,6 +2593,11 @@ def lm_rank(cases, device: str, forced=None) -> list:
 # the logits (PERF.md §6), and a greedy token can follow the rounding
 # where the top two logits are within a few bf16 steps
 SHARD_F32_REL = 1e-4
+
+
+def rel_err(a, b) -> float:
+    """|a - b| / |b| over whole tensors (Frobenius)."""
+    return float((a - b).norm() / b.norm())
 
 
 def hold_sharded(sub: str, name: str, p: dict, ref: dict) -> dict:
@@ -2579,6 +2656,7 @@ def phase_sharded_lm(dev, want: dict) -> dict:
     t12 = time.perf_counter()
     on_card = dev.type == "cuda"
     by_path, summary, refs = {}, {}, {}
+    drift, sharded_drift = {}, {}
     os.environ["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p])
@@ -2615,6 +2693,20 @@ def phase_sharded_lm(dev, want: dict) -> dict:
                 log(f"{sub} {c[0]}: served unsharded ({c[2] or 'no cuts'})"
                     f" in {time.perf_counter() - t0:.1f}s, tokens "
                     f"{r['tokens']}{' (= phase 6/9)' if c[0] in want else ''}")
+            for c in cases:
+                if c[0].endswith("_f32") or c[0] in drift:
+                    continue
+                # the unsharded bf16 model's own drift from its float32
+                # twin, at the twin's prompt, steps fed the twin's tokens
+                twin = f32_twin(c)
+                short = (c[0] + "_bf16",) + tuple(twin[1:2]) + (c[2],) \
+                    + tuple(twin[3:])
+                p = serve_case(short, dev=dev, forced=refs[twin[0]][
+                    "tokens"], logits=True)
+                ref = refs[twin[0]]
+                drift[c[0]] = [rel_err(p["last"], ref["last"])] + [
+                    rel_err(a, b) for a, b in zip(p["step_logits"],
+                                                  ref["step_logits"])]
             outs = run_world("chip_smoke:lm_rank", world,
                              args=(cases, device,
                                    [refs[c[0]]["tokens"] for c in cases]),
@@ -2646,9 +2738,13 @@ def phase_sharded_lm(dev, want: dict) -> dict:
                           f"{sub} {name}: tokens {p['tokens']} != phase "
                           f"6's {ref}")
                 else:
+                    held = hold_sharded(sub, name, p, refs[name])
                     log(f"{sub} {name} rank {p['rank']} against the "
-                        f"unsharded run: "
-                        f"{json.dumps(hold_sharded(sub, name, p, refs[name]))}")
+                        f"unsharded run: {json.dumps(held)}")
+                    if p["dtype"] != "float32":
+                        sharded_drift[name] = max(
+                            sharded_drift.get(name, 0.0),
+                            held["logits_rel_err"][0])
                 n_m = p["n_mamba"]
                 for path, got, n in (("prefill", p["launches_prefill"], n_m),
                                      ("decode", p["launches_decode"],
@@ -2674,20 +2770,17 @@ def phase_sharded_lm(dev, want: dict) -> dict:
                 "layout": [p["layout"] for p in per]}
         log(f"{sub} took {time.perf_counter() - t_sub:.1f}s, process "
             "start included")
-    at_shard = None
-    if on_card:             # the scan at a rank's shape on (1, 2)
-        g = torch.Generator(dev).manual_seed(5)
-        shp = (2, 2_048, 131_072)
-        la = -torch.rand(shp, generator=g, device=dev) * 0.1
-        bx = torch.randn(shp, generator=g, device=dev) * 0.1
-        s0 = torch.zeros((2, 131_072), device=dev)
-        at_shard = hold_scan(la, bx, s0, "12b rank", 10, 3)
-        del la, bx, s0
-        torch.cuda.empty_cache()
+    for name, errs in drift.items():
+        log(f"12 bf16 drift of {name}: the unsharded bf16 model's logits "
+            f"from its float32 twin's ({F32_PROMPT}-token prompt, then "
+            f"{F32_STEPS} steps fed the twin's tokens; relative, prefill "
+            f"first) {[round(e, 5) for e in errs]}; the sharded bf16 "
+            f"model's prefill logits from the unsharded bf16 model's (the "
+            f"full prompt), worst rank {sharded_drift.get(name, 0.0):.5f}")
     log("sharded LM: " + json.dumps(summary))
     log(f"phase 12 took {time.perf_counter() - t12:.1f}s; launches by "
         f"path: {json.dumps(by_path)}")
-    return {"by_path": by_path, "at_shard": at_shard}
+    return {"by_path": by_path}
 
 
 # ------------------------------------------- phase 13: training on a mesh
@@ -3172,16 +3265,17 @@ def mesh_smoke_rank(device: str, root: str) -> dict:
     return out
 
 
-def phase_mesh_train(dev) -> dict:
+def phase_mesh_train(dev, early: dict) -> dict:
     """Phase 13: training on a mesh.  13a phase 10c's model on the unit
     mesh against its mesh-free steps (``phase_train_unit_mesh``); 13b the
     same model on (data, model) = (1, 2), two gloo ranks sharing the card,
     each running ssm_scan and its backward on its channel shard [2, 2,048,
     131,072]; 13c float32 at published widths on (1, 2) against the
     unsharded port; 13d smoke widths on (2, 2): two models' gradients, the
-    Trainer's resize, the compressed all-reduces on CUDA tensors.  Then
-    both scans are held to their plain loops at a 13b rank's shape, and
-    timed."""
+    Trainer's resize, the compressed all-reduces on CUDA tensors.  Both
+    scans' standalone times at a 13b rank's shape are ``early``'s
+    (``phase_scan_timing``, taken before any gloo world used the
+    card)."""
     import os
     import shutil
 
@@ -3311,34 +3405,374 @@ def phase_mesh_train(dev) -> dict:
     by_path["sharded_trainer_13d"] = {
         k: sum(o["trainer"]["launches"][k] for o in outs) for k in wrappers()}
     log(f"13d took {time.perf_counter() - t:.1f}s, process start included")
+    # each 13b rank's bytes to the collectives and layout bytes, a step
+    sent_13b = {o["rank"]: [(st["sent"], st["layout"]) for st in o["steps"]]
+                for o in train_outs}
     if not on_card:
-        return {"by_path": by_path, "at_shard": {}}
+        return {"by_path": by_path, "at_shard": {}, "sent_13b": sent_13b}
 
-    g = torch.Generator(dev).manual_seed(13)
-    la = -torch.rand(shard, generator=g, device=dev) * 0.1
-    bx = torch.randn(shard, generator=g, device=dev) * 0.1
-    s0 = torch.zeros((b, shard[2]), device=dev)
-    fwd = hold_scan(la, bx, s0, "13b rank", 10, 3)
-    from repro_torch.kernels.ssm_scan.ops import scan_forward
-    states = scan_forward(la, bx, s0)
-    del bx
-    gr = torch.randn(shard, generator=g, device=dev)
-    bwd = hold_scan_bwd(la, states, s0, gr, "a 13b rank's shape "
-                        f"{list(shard)}", 10, 2)
-    del la, states, gr, s0
-    torch.cuda.empty_cache()
+    fwd, bwd = early["fwd_rank"], early["bwd_rank"]
+    check(fwd["timing_shape"]["BSF"] == list(shard) and
+          bwd["timing_shape"]["BSF"] == list(shard),
+          f"13b: the scans were timed at {fwd['timing_shape']}, a rank's "
+          f"shard is {shard}")
     log(f"phase 13 took {time.perf_counter() - t13:.1f}s; launches "
         f"by path: {json.dumps(by_path)}")
     # each rank's launches in each 13b step, as counted there
     per_step = {k: [[st["launches"][k] for st in o["steps"]]
                     for o in sorted(train_outs, key=lambda o: o["rank"])]
                 for k in ("ssm_scan", "ssm_scan_bwd")}
-    return {"by_path": by_path, "at_shard": {
+    return {"by_path": by_path, "sent_13b": sent_13b, "at_shard": {
         "ssm_scan": {"shape": list(shard),
                      "launches_per_rank_step": per_step["ssm_scan"], **fwd},
         "ssm_scan_bwd": {"shape": list(shard),
                          "launches_per_rank_step": per_step["ssm_scan_bwd"],
                          **bwd}}}
+
+
+# ------------------------------ phase 14: the journal on a mesh of ranks
+# (data, model) meshes of two gloo ranks sharing the card: wave_peel's
+# fused rung on each rank, then the composite over segdeg
+MESH_WAL_CASES = (((2, 1), "psum"), ((1, 2), "psum"))
+
+
+def mesh_wal_tape(tape) -> list:
+    """Phase 7's crash tape with a checkpoint after its second edge batch
+    (the checkpoint seals a segment and writes no record)."""
+    ops, edges = [], 0
+    for op in tape["ops"]:
+        ops.append(op)
+        edges += op[0] == "edges"
+        if op[0] == "edges" and edges == 2:
+            ops.append(("checkpoint",))
+    return ops
+
+
+def _wal_dir(base: str, key: str, life: str, rank: int) -> str:
+    """Rank 0 journals under ``base/key/life``; every other rank is handed
+    a directory of its own, which it must leave untouched."""
+    return os.path.join(base, key, life if rank == 0 else
+                        f"{life}-rank{rank}")
+
+
+def mesh_wal_rank(state, ops, cases, base: str, device: str, stage: str,
+                  kill_after: int) -> dict:
+    """One rank of phase 14 (``launch/world.py``).  ``stage`` "write": on
+    each (shape, combine) case, ``TCQService(mesh=, wal_dir=)`` runs the
+    tape uninterrupted, then again with rank 0's journal dying after
+    record ``kill_after`` (every rank stops there); "recover": a new world
+    recovers the killed journal (``TCQService.recover(wal_dir, mesh=)``)
+    and drains it, each with the launch counters zeroed around it."""
+    from repro_torch.core import TCQService, TemporalGraph, WriteAheadLog
+    from repro_torch.core.faultinject import CrashingWAL, InjectedCrash
+    from repro_torch.launch.mesh import Mesh
+
+    g = TemporalGraph.from_state(state)
+    out = {}
+    for shape, combine in cases:
+        mesh = Mesh(shape, device=device)
+        key = f"{shape[0]}x{shape[1]}-{combine}"
+        got = {"rank": mesh.rank}
+        if stage == "write":
+            svc = TCQService(g, mesh=mesh, combine=combine, wal_dir=_wal_dir(
+                base, key, "full", mesh.rank))
+            tks, wall, n = run_path(lambda: drive_tape(svc, ops))
+            got["full"] = {i: digest(tk.result) for i, tk in tks.items()}
+            got["full_s"], got["full_launches"] = wall, n
+            got["full_stats"] = svc.wal.stats()
+            svc.wal.close()
+            d = _wal_dir(base, key, "kill", mesh.rank)
+            wal = (CrashingWAL(WriteAheadLog(d), crash_after_records=kill_after)
+                   if mesh.rank == 0 else None)
+            svc = TCQService(g, mesh=mesh, combine=combine, wal=wal,
+                             wal_dir=d)
+            seen = {}
+            try:
+                drive_tape(svc, ops, seen)
+                got["crashed"] = False
+            except InjectedCrash:
+                got["crashed"] = True
+            svc.wal.close()
+            got["precrash"] = {i: digest(tk.result) for i, tk in seen.items()
+                               if tk.status == "done"}
+        else:
+            d = _wal_dir(base, key, "kill", mesh.rank)
+            rsvc, _, n = run_path(lambda: TCQService.recover(
+                d, mesh=mesh, combine=combine))
+            got["report"] = dict(rsvc.recovery_report)
+            got["recover_launches"] = n
+            drained, wall, n = run_path(rsvc.run_until_idle)
+            got["drained"] = {tk.id: digest(tk.result) for tk in drained}
+            got["drain_s"], got["drain_launches"] = wall, n
+            got["stats"] = rsvc.wal.stats()
+            rsvc.wal.close()
+        got["files"] = sorted(os.path.relpath(os.path.join(r, f), base)
+                              for r, _, fs in os.walk(os.path.join(base, key))
+                              for f in fs)
+        out[key] = got
+    return out
+
+
+def phase_mesh_wal(dev, tape: dict) -> dict:
+    """Phase 14: phase 7's crash tape through ``TCQService(mesh=,
+    wal_dir=)`` on (2, 1) (wave_peel on each rank) and (1, 2) (the
+    composite over segdeg), two gloo ranks sharing the card: uninterrupted,
+    then killed after the journal record phase 7's crash drill names, the
+    world ended, and a new world recovered from rank 0's journal and
+    drained.  Every ticket must equal the uninterrupted world's and phase
+    7's unsharded recovered drain, bit for bit; only rank 0 writes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.world import run_world
+
+    t14 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    ops = mesh_wal_tape(tape)
+    kill = tape["n_rec"]
+    base = tempfile.mkdtemp(prefix="mesh-wal-", dir=ROOT / "build")
+    device = "cuda:0" if on_card else "cpu"
+    by_path = {}
+    try:
+        lives = {}
+        for stage in ("write", "recover"):
+            t0 = time.perf_counter()
+            lives[stage] = run_world(
+                "chip_smoke:mesh_wal_rank", 2,
+                args=(tape["g0"], ops, MESH_WAL_CASES, base, device, stage,
+                      kill), backend="gloo", timeout_s=600)
+            log(f"14 {stage}: a world of 2 gloo ranks on {device} in "
+                f"{time.perf_counter() - t0:.1f}s, process start included")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    want = tape["recovered"]
+    for shape, combine in MESH_WAL_CASES:
+        key = f"{shape[0]}x{shape[1]}-{combine}"
+        wrote = [o[key] for o in lives["write"]]
+        rec = [o[key] for o in lives["recover"]]
+        for w, r in zip(wrote, rec):
+            full = w["full"]
+            check(full.keys() == tape["clean"].keys() and all(
+                full[i] == tape["clean"][i] for i in full),
+                f"14 {key}: rank {w['rank']}'s uninterrupted world differs "
+                "from phase 7's uninterrupted tape")
+            check(w["crashed"], f"14 {key}: the kill never fired")
+            resolved = {**w["precrash"], **r["drained"]}
+            check(resolved.keys() == want.keys(),
+                  f"14 {key}: rank {r['rank']} resolved tickets "
+                  f"{sorted(resolved)}, phase 7's recovery {sorted(want)}")
+            for i, cores in resolved.items():
+                check(cores == want[i] and cores == full[i],
+                      f"14 {key}: rank {r['rank']} ticket {i} differs from "
+                      "the uninterrupted world or phase 7's recovery")
+            check(r["report"] == rec[0]["report"] and r["stats"]
+                  == rec[0]["stats"], f"14 {key}: rank {r['rank']}'s "
+                  "recovery report or journal stats are not rank 0's")
+            check(not [f for f in r["files"] if "-rank" in f],
+                  f"14 {key}: a rank other than 0 wrote {r['files']}")
+        n = {k: sum(r["drain_launches"][k] for r in rec) for k in wrappers()}
+        if on_card:
+            fused = shape[1] == 1
+            check((n["wave_peel"] > 0) == fused and (n["segdeg"] > 0)
+                  != fused and n["ssm_scan"] == n["ssm_scan_bwd"] == 0,
+                  f"14 {key}: the recovered drain launched {n}")
+        by_path[f"mesh_wal_{key}_drain"] = n
+        by_path[f"mesh_wal_{key}_recover"] = {
+            k: sum(r["recover_launches"][k] for r in rec) for k in wrappers()}
+        rep = rec[0]["report"]
+        log(f"14 {key}: the tape "
+            f"uninterrupted in {wrote[0]['full_s']:.2f}s ({json.dumps(wrote[0]['full_stats'])}); "
+            f"killed after journal record {kill}; recovered from snapshot "
+            f"seq {rep['snapshot_seq']} + {rep['wal_records']} records in "
+            f"{1e3 * rep['recover_s']:.1f} ms (rank 0), {rep['pending_after']} "
+            f"tickets re-queued; drained in {rec[0]['drain_s']:.2f}s, "
+            f"launches {json.dumps(n)}; {len(want)} admissions equal to the "
+            f"uninterrupted world and to phase 7's unsharded recovery; only "
+            f"rank 0 wrote ({len(rec[0]['files'])} files)")
+    log(f"phase 14 took {time.perf_counter() - t14:.1f}s; launches by path: "
+        f"{json.dumps(by_path)}")
+    return {"by_path": by_path}
+
+
+# ------------------------------------ phase 15: the dry run on the card
+def tcq_dry_rank(state, reqs, cases, q: int, device: str) -> dict:
+    """One rank of 15b: a single-iteration TCQ step
+    (``build_wave_step(single_iteration=True)``) of phase 3's graph and
+    ``q`` of its queries, live on the card, beside the dry run of the same
+    step on a ``ShapeMesh`` rank: each one's bytes to the collectives."""
+    import numpy as np
+    import torch
+    from repro_torch.core import TemporalGraph
+    from repro_torch.core.distributed import (build_wave_step, plan_arrays,
+                                              rank_arrays, shard_graph)
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh, ShapeMesh
+
+    g = TemporalGraph.from_state(state)
+    out = {}
+    for shape, combine in cases:
+        mesh = Mesh(shape, device=device)
+        plan = shard_graph(g, mesh.model_shards)
+        arrays = rank_arrays(plan_arrays(plan), mesh)
+        step = build_wave_step(mesh, num_vertices=plan.num_vertices,
+                               combine=combine, p_s=plan.num_pairs_shard,
+                               single_iteration=True)
+        pick = [reqs[i % len(reqs)] for i in range(q)]
+        ts = np.array([r["ts"] for r in pick])
+        te = np.array([r["te"] for r in pick])
+        alive = torch.ones((q, plan.num_vertices), dtype=torch.bool,
+                           device=mesh.device)
+        step(*arrays, alive, ts, te, pick[0]["k"], 1)      # warm-up
+        for k in mesh.sent_bytes:
+            mesh.sent_bytes[k] = 0
+        res, wall, n = run_path(lambda: step(*arrays, alive, ts, te,
+                                             pick[0]["k"], 1))
+        cost, *_ = DR.tcq_cost(DR.meta_tel(plan), q, ShapeMesh(
+            shape, rank=mesh.rank), combine)
+        out[f"{shape[0]}x{shape[1]}-{combine}"] = {
+            "rank": mesh.rank, "live": dict(mesh.sent_bytes),
+            "dry": cost.sent_bytes, "dry_segdeg": dict(cost.kernels["segdeg"]),
+            "launches": n, "wall": wall, "iters": int(res[4]),
+            "E_s": int(plan.src.shape[1]), "V": int(plan.num_vertices)}
+    return out
+
+
+def kernel_dryrun_bytes(kernels: list) -> None:
+    """Each kernel entry's ``dryrun_bytes``: what the dry run's cost
+    counter charges one call of the kernel at its timing shape (its
+    dispatcher's ``meta`` rule), held to the bytes behind its bound (the
+    dense count for the two TCQ kernels, whose bounds count this run's
+    data, which a ``meta`` tensor does not carry)."""
+    import torch
+    from repro_torch.core.graph import DeviceTEL
+    from repro_torch.kernels.segdeg.ops import banded_segsum
+    from repro_torch.kernels.ssm_scan.ops import scan_forward, ssm_scan_bwd
+    from repro_torch.kernels.wave_peel.ops import make_fused_wave_step
+    from repro_torch.launch.op_cost import OpCost
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    for k in kernels:
+        sh = k["timing_shape"]
+        with OpCost() as cost:
+            if k["name"] == "wave_peel":
+                e, p, v, w = sh["E"], sh["P"], sh["V"], sh["W"]
+                i32 = torch.int32
+                tel = DeviceTEL(meta(e, dtype=i32), meta(e, dtype=i32),
+                                meta(e, dtype=i32), meta(e, dtype=i32),
+                                meta(p, dtype=i32), meta(p, dtype=i32),
+                                meta(sh["HP"], dtype=i32),
+                                meta(sh["HP"], dtype=i32),
+                                meta(e, dtype=i32))
+                make_fused_wave_step(tel, v)(meta(w, v, dtype=torch.bool),
+                                             0, 0, 0, 0)
+            elif k["name"] == "segdeg":
+                banded_segsum(meta(sh["N"], sh["Q"]),
+                              meta(sh["N"], dtype=torch.int32), sh["S"])
+            elif k["name"] == "ssm_scan":
+                x = meta(*sh["BSF"])
+                scan_forward(x, x, meta(sh["BSF"][0], sh["BSF"][2]))
+            else:
+                x = meta(*sh["BSF"])
+                ssm_scan_bwd(x, x, meta(sh["BSF"][0], sh["BSF"][2]), x)
+        k["dryrun_bytes"] = cost.kernels[k["name"]]["bytes"]
+        check(cost.kernels[k["name"]]["calls"] == 1 and k["dryrun_bytes"]
+              == k["bound_bytes_dense"],
+              f"{k['name']}: the dry run charges {k['dryrun_bytes']} bytes "
+              f"at {sh}, its bound's bytes are {k['bound_bytes_dense']}")
+        log(f"15c {k['name']} at {json.dumps(sh)}: the dry run charges "
+            f"{k['dryrun_bytes']} bytes a call = the bytes behind its bound"
+            + (" (every row, every table: the dense count)"
+               if k["name"] in ("wave_peel", "segdeg") else ""))
+
+
+def phase_dryrun(dev, state, reqs, sent_13b: dict, kernels: list) -> dict:
+    """Phase 15: the dry run (``launch/dryrun.py``) held to the card.
+    15a 13b's cell (phase 10c's Jamba, Adafactor, 2 x 2,048 tokens, (1,
+    2)) on a ``ShapeMesh``: each rank's bytes to each kind of collective
+    and layout bytes equal to what 13b's ranks measured a step in this
+    run; 15b a single-iteration TCQ step live on a gloo (1, 2) world on
+    the card, psum and rs_ag, against its dry run; 15c each kernel's
+    dry-run charge at its timing shape against its bound's bytes; 15d the
+    roofline terms (a model on datasheet rates, not a measurement) of a
+    (16, 16) Jamba train cell and of the tcq-mathoverflow cell."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.shapes import SHAPES, ShapeCell
+    from repro_torch.launch.world import run_world
+
+    t15 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    name, cuts, shape, b, s, _ = MESH_TRAIN
+    cfg = get_config(JAMBA).scaled(**cuts)
+    for rank, steps in sorted(sent_13b.items()):
+        cost, _, t_build, t_run = DR.lm_cost(
+            cfg, ShapeCell("13b", s, b, "train"),
+            ShapeMesh(shape, rank=rank), n_micro=1)
+        for i, (sent, layout) in enumerate(steps):
+            check(cost.sent_bytes == sent and cost.layout_bytes == layout,
+                  f"15a rank {rank} step {i}: the dry run records "
+                  f"{cost.sent_bytes} and layout {cost.layout_bytes} B, "
+                  f"13b measured {sent} and {layout} B")
+        log(f"15a 13b's cell on a ShapeMesh{shape} rank {rank} (built "
+            f"{t_build:.1f}s, meta step {t_run:.1f}s on the host): bytes to "
+            f"the collectives {json.dumps(cost.sent_bytes)}, layout "
+            f"{cost.layout_bytes} B = 13b's measured bytes in each of its "
+            f"{len(steps)} steps; kernels charged "
+            f"{json.dumps(dict(cost.kernels))}")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    q = 8
+    cases = (((1, 2), "psum"), ((1, 2), "rs_ag"))
+    outs = run_world("chip_smoke:tcq_dry_rank", 2,
+                     args=(state, reqs, cases, q,
+                           "cuda:0" if on_card else "cpu"),
+                     backend="gloo", timeout_s=600)
+    by_path = {}
+    for shape_, combine in cases:
+        key = f"{shape_[0]}x{shape_[1]}-{combine}"
+        for o in outs:
+            r = o[key]
+            check(r["live"] == r["dry"], f"15b {key} rank {r['rank']}: live "
+                  f"{r['live']}, dry run {r['dry']}")
+            check(not on_card or r["launches"]["segdeg"]
+                  == r["dry_segdeg"]["calls"] == 2,
+                  f"15b {key} rank {r['rank']}: launches {r['launches']}, "
+                  f"dry run {r['dry_segdeg']}")
+            log(f"15b single-iteration TCQ step, {key}, rank {r['rank']} "
+                f"(W={q}, E_s={r['E_s']}, V={r['V']}, {r['iters']} "
+                f"iteration): live bytes to the collectives "
+                f"{json.dumps(r['live'])} = the dry run's; "
+                f"{r['wall'] * 1e3:.1f} ms; launches "
+                f"{json.dumps(r['launches'])}, the dry run charges segdeg "
+                f"{json.dumps(r['dry_segdeg'])}")
+        by_path[f"dryrun_tcq_{key}"] = {
+            k: sum(o[key]["launches"][k] for o in outs) for k in wrappers()}
+    kernel_dryrun_bytes(kernels)
+    cell = SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    cost, mem, *_ = DR.lm_cost(cfg, cell, DR.production_mesh(False))
+    tokens = cell.batch * cell.seq
+    terms = DR._cost_record(cost, cfg.model_flops(tokens) / 256)
+    terms.pop("top_ops")
+    log(f"15d dry-run roofline (H100 datasheet rates, a model, not a "
+        f"measurement) of phase 10c's Jamba (8 layers, no experts) at "
+        f"train_4k ({cell.batch} x {cell.seq} tokens) on (16, 16), rank 0, "
+        f"in {time.perf_counter() - t0:.1f}s: {json.dumps(terms)}; "
+        f"collectives {json.dumps(DR.analysis.collective_summary(cost.collectives))}")
+    rec = DR.lower_tcq_cell("tcq-mathoverflow", False, "rs_ag")
+    rec["roofline"].pop("top_ops")
+    log(f"15d dry-run roofline of tcq-mathoverflow on (16, 16), rs_ag, one "
+        f"iteration: {json.dumps(rec['roofline'])}; collectives "
+        f"{json.dumps(rec['collectives'])}")
+    log(f"phase 15 took {time.perf_counter() - t15:.1f}s")
+    return {"by_path": by_path}
 
 
 def main() -> int:
@@ -3394,7 +3828,9 @@ def main() -> int:
     phase_lm_smoke(dev)
     lm = phase_lm(dev)
     kernels.append(lm["entry"])
-    done("phase 6 (Jamba)")
+    early = phase_scan_timing(dev)
+    lm["entry"]["at_sharded_shape"] = early["fwd_rank"]
+    done("phase 6 (Jamba, and the scans' standalone times)")
     torch.cuda.empty_cache()
     served = phase_serve(dev, g)
     done("phase 7 (serving)")
@@ -3404,6 +3840,7 @@ def main() -> int:
     done("phase 11 (the sharded pipeline)")
     for key in ("batch", "comp"):
         del main_run[key]
+    g_state = g.state_dict()
     del g
     torch.cuda.empty_cache()
     t9 = time.perf_counter()
@@ -3415,7 +3852,6 @@ def main() -> int:
     sharded = phase_sharded_lm(dev, {"jamba": lm["tokens"].tolist(),
                                      **{k: v.tolist() for k, v in
                                         fam["tokens"].items()}})
-    lm["entry"]["at_sharded_shape"] = sharded["at_shard"]
     done("phase 12 (sharded LM serving)")
     torch.cuda.empty_cache()
     t10 = time.perf_counter()
@@ -3423,7 +3859,7 @@ def main() -> int:
     trained = phase_train(dev)
     # after 10c: in two runs with 10a first, right after phase 9's traces,
     # 10a's own traces recorded no device kernel at all
-    kernels.append(phase_train_kernel(dev))
+    kernels.append(phase_train_kernel(dev, early["bwd_train"]))
     lifecycle = phase_trainer(dev)
     for k in kernels:
         if k["name"] in trained["scan_ms_in_step"]:
@@ -3431,15 +3867,21 @@ def main() -> int:
     log(f"phase 10 took {time.perf_counter() - t10:.1f}s")
     done("phase 10 (training)")
     torch.cuda.empty_cache()
-    mesh_train = phase_mesh_train(dev)
+    mesh_train = phase_mesh_train(dev, early)
     for k in kernels:
         if k["name"] in mesh_train["at_shard"]:
             k["at_sharded_train_shape"] = mesh_train["at_shard"][k["name"]]
     done("phase 13 (training on a mesh)")
+    mesh_wal = phase_mesh_wal(dev, served["tape"])
+    done("phase 14 (the journal on a mesh)")
+    dry = phase_dryrun(dev, g_state, main_run["reqs"],
+                       mesh_train["sent_13b"], kernels)
+    done("phase 15 (the dry run)")
     by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
                **base["by_path"], **meshed["by_path"], **fam["by_path"],
                **sharded["by_path"], **train_smoke, **trained["by_path"],
-               **lifecycle["by_path"], **mesh_train["by_path"]}
+               **lifecycle["by_path"], **mesh_train["by_path"],
+               **mesh_wal["by_path"], **dry["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

@@ -388,13 +388,14 @@ def _peel_local(mesh, arrays, alive, ts, te, k, h, *, v_pad: int,
         deg_part = seg_vert(pairact[hpp, :], hps)[:v_pad]
         new = _combine(mesh, cur, deg_part, k, combine, v_pad)
         iters += 1
-        changed = bool((new != cur).any())
-        cur = new
-        if not changed:
-            return cur, ea, iters
         if max_iters and iters >= max_iters:
-            # a truncated peel stops before the fixpoint: recount edges
-            return cur, win & cur[:, src] & cur[:, dst], iters
+            # a truncated peel stops here, before the host read of the
+            # fixpoint test (a dry run's meta tensors hold no values):
+            # recount edges, which equal ``ea`` when nothing changed
+            return new, win & new[:, src] & new[:, dst], iters
+        if not bool((new != cur).any()):
+            return new, ea, iters
+        cur = new
 
 
 def _edge_stats(mesh, ea: torch.Tensor, t: torch.Tensor):

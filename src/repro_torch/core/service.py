@@ -48,7 +48,11 @@ seam where a real frontend — or the open and closed loops in
   timeouts, the frontends' arrivals and sheds) goes through
   :meth:`TCQService.now`, which is rank 0's clock on every rank: ranks
   that read their own clocks could take different decisions, and then
-  one would enter a collective the others never reach.
+  one would enter a collective the others never reach.  A journal
+  there is rank 0's alone (``core/wal.py::MeshJournal``): it writes the
+  records and the snapshots, and every rank keeps its sequence numbers;
+  :meth:`TCQService.recover` reads the directory on rank 0 and replays
+  the same records on every rank.
 """
 
 from __future__ import annotations
@@ -217,8 +221,12 @@ class TCQService:
         Shard every pool over a ``launch.mesh.Mesh`` (see ``TCQEngine``);
         the pool log then carries ``shard_occupancy`` and
         ``collective_bytes``, and ``stats["distributed"]`` the mesh's
-        counters.  A journal on a mesh of several ranks is not supported
-        (``ValueError``): the ranks would write one directory together.
+        counters.  On a mesh of several ranks the journal is rank 0's
+        (``core/wal.py::MeshJournal``): every rank passes ``wal_dir`` (or
+        ``wal=``, on rank 0 alone), rank 0 writes the records and every
+        snapshot, the other ranks write nothing and keep the same
+        sequence numbers, and ``svc.wal.stats()`` and ``checkpoint()``
+        return rank 0's values on every rank.
 
     Usage::
 
@@ -252,10 +260,6 @@ class TCQService:
                                mesh=mesh, combine=combine)
         self.engine = engine
         mesh = engine.mesh
-        if mesh is not None and mesh.size > 1 and (wal is not None or
-                                                   wal_dir is not None):
-            raise ValueError("a write-ahead journal on a mesh of "
-                             f"{mesh.size} ranks is not supported")
         self._clock = time.perf_counter if mesh is None else mesh.clock
         self.wave = wave
         self.depth = int(depth)
@@ -265,7 +269,11 @@ class TCQService:
         # through the very paths that wrote them.
         self._replaying = False
         self.recovery_report: Optional[Dict] = None
-        if wal is not None:
+        if mesh is not None and mesh.size > 1:
+            self.wal = walmod.MeshJournal.attach(mesh, wal=wal,
+                                                 wal_dir=wal_dir,
+                                                 fsync=fsync)
+        elif wal is not None:
             self.wal = wal
         elif wal_dir is not None:
             self.wal = walmod.WriteAheadLog(wal_dir, fsync=fsync)
@@ -291,8 +299,8 @@ class TCQService:
         self.completed: List[TCQTicket] = []
         self._next_id = 0
         self.pool_log: List[Dict] = []      # one record per pool run
-        if (self.wal is not None
-                and not walmod.list_snapshots(self.wal.dir)):
+        if self.wal is not None and not self._on_writer(
+                lambda log: bool(walmod.list_snapshots(log.dir))):
             # genesis checkpoint: a directory with no snapshot would make
             # recover() partial (nothing to replay the tail onto), so the
             # initial graph is persisted at the active sequence number —
@@ -304,6 +312,14 @@ class TCQService:
         0's reading on every rank (``Mesh.clock``), so that every clock
         decision is the same on every rank."""
         return self._clock()
+
+    def _on_writer(self, fn, *, barrier: bool = False):
+        """``fn(log)`` on the rank that writes the journal; on a mesh of
+        several ranks, rank 0's value on every rank
+        (``MeshJournal.share``)."""
+        if isinstance(self.wal, walmod.MeshJournal):
+            return self.wal.share(fn, barrier=barrier)
+        return fn(self.wal)
 
     def _journal(self, kind: str, meta: Dict, arrays=None) -> None:
         """Append one write-ahead record (no-op without a journal, and
@@ -802,7 +818,10 @@ class TCQService:
         :meth:`load_snapshot` / :meth:`recover` detect a damaged file
         instead of restoring from it.  ``wal_seq`` stamps the journal
         segment this snapshot seals (set by :meth:`checkpoint`)."""
-        snap = self.snapshot()
+        self._save(path_or_file, self.snapshot(), wal_seq)
+
+    @staticmethod
+    def _save(path_or_file, snap: Dict, wal_seq: Optional[int]) -> None:
         if wal_seq is not None:
             snap["wal_seq"] = int(wal_seq)
         arrays = {}
@@ -841,7 +860,8 @@ class TCQService:
     # ------------------------------------------------------------ durability
     def _write_snapshot_file(self, seq: int) -> str:
         path = walmod.snapshot_path(self.wal.dir, seq)
-        self.save_snapshot(path, wal_seq=seq)
+        snap = self.snapshot()      # every rank: it reads the mesh's clock
+        self._on_writer(lambda log: self._save(path, snap, seq))
         return path
 
     def checkpoint(self) -> Dict:
@@ -858,20 +878,28 @@ class TCQService:
         segment at or above the *oldest* retained one — makes the
         corrupt-newest-snapshot fallback lossless: the older snapshot's
         whole tail is still on disk.
+
+        On a mesh of several ranks rank 0 does the writing, every rank
+        returns rank 0's record, and a barrier closes the call.
         """
         if self.wal is None:
             raise walmod.WALError("checkpoint() needs a wal_dir")
         t0 = time.perf_counter()
         seq = self.wal.rotate()
         path = self._write_snapshot_file(seq)
-        snaps = walmod.list_snapshots(self.wal.dir)
-        keep = [s for s, _ in snaps][-max(1, int(self.retained_checkpoints)):]
-        removed = self.wal.gc(keep[0])
-        return {"path": path, "wal_seq": seq, "gc_removed": len(removed),
-                "checkpoint_s": time.perf_counter() - t0}
+
+        def collect(log):
+            snaps = walmod.list_snapshots(log.dir)
+            keep = [s for s, _ in snaps][
+                -max(1, int(self.retained_checkpoints)):]
+            return {"path": path, "wal_seq": seq,
+                    "gc_removed": len(log.gc(keep[0])),
+                    "checkpoint_s": time.perf_counter() - t0}
+
+        return self._on_writer(collect, barrier=True)
 
     @classmethod
-    def recover(cls, wal_dir: str, *, fsync: str = "batch",
+    def recover(cls, wal_dir: str, *, fsync: str = "batch", mesh=None,
                 **kwargs) -> "TCQService":
         """Point-in-time crash recovery: newest valid snapshot + journal
         tail replay.
@@ -893,13 +921,20 @@ class TCQService:
         :class:`~repro_torch.core.wal.WALReplayError`.
 
         ``kwargs`` go to the restored service's constructor (``device=``
-        among them: CUDA unless told otherwise).  The returned service has
+        among them: CUDA unless told otherwise).  On a ``mesh`` of several
+        ranks every rank calls ``recover``: rank 0 reads the snapshots and
+        the journal (its ``wal_dir``; the others' is not touched) and
+        broadcasts the chosen snapshot and the records, every rank replays
+        them through the same paths and checks, and every rank's
+        ``recovery_report`` is rank 0's.  The returned service has
         a fresh active segment and journals new mutations immediately; ``recovery_report`` carries the snapshot
         used, snapshots skipped, records replayed, tail events, and
         wall-clock recovery time (the drill's curve datum).
         """
         t0 = time.perf_counter()
-        snaps = walmod.list_snapshots(wal_dir)
+        if mesh is not None:
+            kwargs["mesh"] = mesh
+        snaps = walmod.share(mesh, lambda: walmod.list_snapshots(wal_dir))
         if not snaps:
             raise walmod.WALError(f"no snapshot in {wal_dir!r} — nothing "
                                   "to recover (genesis missing?)")
@@ -909,7 +944,8 @@ class TCQService:
         kwargs.pop("wal_dir", None)     # replay, never during restore
         for seq, path in reversed(snaps):
             try:
-                snap = cls._parse_snapshot_file(path)
+                snap = walmod.share(
+                    mesh, lambda: cls._parse_snapshot_file(path))
                 svc = cls.restore(snap, **kwargs)
                 snap_seq, snap_path = seq, path
                 break
@@ -919,7 +955,11 @@ class TCQService:
             raise walmod.WALError(
                 f"every snapshot in {wal_dir!r} is corrupt: {skipped}")
         from_seq = int(snap.get("wal_seq", snap_seq))
-        wal = walmod.WriteAheadLog(wal_dir, fsync=fsync)
+        if mesh is not None and mesh.size > 1:
+            wal = walmod.MeshJournal.attach(mesh, wal_dir=wal_dir,
+                                            fsync=fsync)
+        else:
+            wal = walmod.WriteAheadLog(wal_dir, fsync=fsync)
         svc._replaying = True
         replayed = 0
         try:
@@ -929,7 +969,7 @@ class TCQService:
         finally:
             svc._replaying = False
         svc.wal = wal
-        svc.recovery_report = {
+        report = {
             "snapshot": snap_path,
             "snapshot_seq": int(snap_seq),
             "snapshots_skipped": skipped,
@@ -939,6 +979,7 @@ class TCQService:
             "epoch_after": int(svc.epoch),
             "recover_s": time.perf_counter() - t0,
         }
+        svc.recovery_report = svc._on_writer(lambda log: report)
         return svc
 
     def _replay_record(self, rec) -> None:

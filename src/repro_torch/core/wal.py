@@ -47,6 +47,14 @@ bytes.  Crash-point and torn-write *injection* lives in
 ``core/faultinject.py`` (``CrashingWAL``); the kill-anywhere drill that
 gates bit-identical recovery at every injected point is
 ``tests/test_torch_wal.py``.
+
+* **On a mesh of several ranks** (``MeshJournal``) every rank runs the
+  service's host control, and rank 0 alone writes: the journal, every
+  snapshot and the genesis snapshot.  The other ranks follow, writing
+  nothing; whatever rank 0 learns from its files (an append's outcome,
+  the snapshots on disk, a recovery's records) reaches them by a
+  broadcast, so every rank takes the same path and ranks on other hosts
+  need no shared file system (``tests/test_torch_wal_mesh.py``).
 """
 
 from __future__ import annotations
@@ -54,10 +62,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
 import re
 import struct
 import zlib
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -425,3 +434,120 @@ def read_snapshot(path_or_file) -> Tuple[Dict, Dict[str, np.ndarray]]:
     if want is not None and snapshot_checksum(meta, arrays) != int(want):
         raise SnapshotCorruption("snapshot checksum mismatch")
     return meta, arrays
+
+
+# ------------------------------------------------------- on a mesh of ranks
+def share(mesh, fn: Callable):
+    """``fn()`` run on rank 0 of ``mesh`` and its value on every rank (a
+    broadcast from rank 0); off a mesh, or on a mesh of one rank, just
+    ``fn()``.  An exception ``fn`` raises is raised on every rank: the
+    same exception on rank 0, a copy of it on the others (a
+    :class:`WALError` naming it when it does not pickle), so that no rank
+    carries on alone into a collective the others never reach."""
+    if mesh is None or mesh.size == 1:
+        return fn()
+    import torch.distributed as dist
+
+    box, err = [None], None
+    if mesh.rank == 0:
+        try:
+            box = [(True, fn())]
+        except BaseException as e:      # re-raised below, on every rank:
+            err = e                     # a drill's kill included
+            try:
+                pickle.dumps(e)
+                box = [(False, e)]
+            except Exception:
+                box = [(False, WALError(f"rank 0 failed: {e!r}"))]
+    dist.broadcast_object_list(box, src=0)
+    ok, value = box[0]
+    if ok:
+        return value
+    raise err if err is not None else value
+
+
+class MeshJournal:
+    """The write-ahead journal of a ``TCQService`` on a mesh of several
+    ranks: rank 0 holds the :class:`WriteAheadLog` (``log``) and the
+    other ranks follow it, writing nothing.
+
+    Every rank calls the journal at the same points (each rank runs the
+    service's host control); each call that touches the log runs on rank
+    0 and is broadcast with the log's ``stats()`` (:func:`share`), so
+    every rank returns rank 0's value, raises rank 0's failure, and holds
+    the same ``active_seq`` and counters.  The service writes snapshots
+    through :meth:`share` too.
+    """
+
+    def __init__(self, mesh, log, stats: Dict):
+        self.mesh = mesh
+        self.log = log                  # None on every rank but 0
+        self._stats = stats
+        self.dir = stats["dir"]         # rank 0's directory
+        self.fsync = stats["fsync"]
+        self.tail_events: List[Dict] = []
+
+    @classmethod
+    def attach(cls, mesh, *, wal=None, wal_dir: Optional[str] = None,
+               fsync: str = "batch") -> Optional["MeshJournal"]:
+        """The mesh's journal, or None when rank 0 keeps none.  Rank 0
+        opens ``wal`` (a log instance, rank 0's alone) or ``wal_dir``;
+        the other ranks follow whatever rank 0 opened (their ``wal_dir``
+        is not touched)."""
+        if mesh.rank != 0 and wal is not None:
+            raise ValueError("on a mesh of several ranks only rank 0 "
+                             "writes the journal: pass wal= on rank 0 "
+                             "alone")
+        log = None
+        if mesh.rank == 0 and (wal is not None or wal_dir is not None):
+            log = wal if wal is not None else WriteAheadLog(wal_dir,
+                                                            fsync=fsync)
+        stats = share(mesh, lambda: None if log is None else log.stats())
+        if stats is None:
+            if wal_dir is not None:
+                raise ValueError(f"rank {mesh.rank} was given a journal "
+                                 f"({wal_dir!r}) and rank 0 keeps none")
+            return None
+        return cls(mesh, log, stats)
+
+    def share(self, fn: Callable, *, barrier: bool = False):
+        """``fn(log)`` on rank 0, its value on every rank; every rank's
+        counters become rank 0's.  ``barrier``: every rank waits for all
+        the others before it returns."""
+        value, self._stats = share(self.mesh,
+                                   lambda: (fn(self.log), self.log.stats()))
+        if barrier:
+            import torch.distributed as dist
+
+            dist.barrier()
+        return value
+
+    @property
+    def active_seq(self) -> int:
+        return self._stats["active_seq"]
+
+    def append(self, kind: str, meta: Optional[Dict] = None,
+               arrays: Optional[Dict[str, np.ndarray]] = None) -> int:
+        return self.share(lambda log: log.append(kind, meta, arrays))
+
+    def sync(self) -> None:
+        self.share(lambda log: log.sync())
+
+    def rotate(self) -> int:
+        return self.share(lambda log: log.rotate())
+
+    def replay(self, from_seq: int) -> List[WALRecord]:
+        """Rank 0's records from ``from_seq`` on (its torn tail cut, as
+        :meth:`WriteAheadLog.replay`), and its ``tail_events``, on every
+        rank."""
+        records, self.tail_events = self.share(
+            lambda log: (list(log.replay(from_seq)), log.tail_events))
+        return records
+
+    def close(self) -> None:
+        if self.log is not None:
+            self.log.close()
+
+    def stats(self) -> Dict:
+        """Rank 0's journal stats as of the last call, on every rank."""
+        return dict(self._stats)

@@ -5,7 +5,9 @@ sums the rows of ``values`` that share a (sorted) segment id and drops ids
 ``>= num_segments``.  It is the composite wave step's two degree
 reductions (``core/wave.py::wave_degrees_from_ea``).  On a CPU tensor it
 runs :func:`banded_segsum_ref`; on a CUDA tensor it launches the kernel in
-``csrc/segdeg.cu`` or raises — there is no band cap and no fallback.
+``csrc/segdeg.cu`` or raises — there is no band cap and no fallback.  On a
+``meta`` tensor (a dry run) it computes nothing and returns the output's
+shape, charging the dry run's cost counter the kernel's bytes.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import bind, check
+from repro_torch.launch.op_cost import charge_kernel, tensor_bytes
 
 MAX_COLUMNS = 1024            # Q above this needs > 48 KB of shared memory
 _TILE_VALUES = 4096           # values one block stages (tile rows x Q)
@@ -67,6 +70,15 @@ def banded_segsum(values: torch.Tensor, seg_ids: torch.Tensor,
     whatever ``offsets`` says."""
     if values.device.type == "cpu":
         return banded_segsum_ref(values, seg_ids, num_segments)
+    if values.device.type == "meta":
+        # the ids cannot be read here, so every row is charged as one the
+        # kernel reads (an id below S), with the float32 values, the ids,
+        # the [S + 1] offsets and the output
+        out = torch.empty((int(num_segments),) + tuple(values.shape[1:]),
+                          dtype=torch.float32, device="meta")
+        charge_kernel("segdeg", 4 * values.numel() + tensor_bytes(seg_ids)
+                      + 4 * (int(num_segments) + 1) + tensor_bytes(out))
+        return out
     if values.device.type != "cuda":
         raise ValueError(f"banded_segsum: unsupported device {values.device}")
     if values.dim() != 2 or seg_ids.dim() != 1 or \

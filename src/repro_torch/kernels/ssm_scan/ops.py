@@ -8,8 +8,10 @@ output keeps its inputs' gradients: the forward is :func:`scan_forward`,
 the backward :func:`ssm_scan_bwd` (the reverse scan).  Each dispatcher
 runs its plain version (``ref.py``) on CPU tensors and on CUDA tensors
 launches its kernel in ``csrc/ssm_scan.cu`` or raises — nothing falls
-back.  ``ssm_scan.launches`` and ``ssm_scan_bwd.launches`` count the
-kernels' launches.
+back.  On ``meta`` tensors (a dry run, ``launch/dryrun.py``) it computes
+nothing and returns float32 outputs of the right shapes, charging the
+dry run's cost counter the kernel's bytes.  ``ssm_scan.launches`` and
+``ssm_scan_bwd.launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import bind, check
+from repro_torch.launch.op_cost import charge_kernel, tensor_bytes
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 
@@ -35,6 +38,16 @@ def _check(name: str, names: str, big, small) -> None:
         raise ValueError(f"{name}: every tensor must share a device")
 
 
+def _on_meta(name: str, inputs, shapes) -> tuple:
+    """The ``meta`` rule: float32 outputs of ``shapes``, nothing computed;
+    the kernel ``name`` is charged its inputs read once and its outputs
+    written once (the bytes behind its roofline bound)."""
+    outs = tuple(torch.empty(tuple(sh), dtype=torch.float32, device="meta")
+                 for sh in shapes)
+    charge_kernel(name, tensor_bytes(*inputs, *outs))
+    return outs
+
+
 def _f32(*ts):
     return tuple(t.to(torch.float32).contiguous() for t in ts)
 
@@ -46,6 +59,8 @@ def scan_forward(log_a: torch.Tensor, bx: torch.Tensor,
     as the TPU kernel casts them."""
     if log_a.device.type == "cpu":
         return ssm_scan_ref(log_a, bx, s0)
+    if log_a.device.type == "meta":
+        return _on_meta("ssm_scan", (log_a, bx, s0), [log_a.shape])[0]
     _check("ssm_scan", "log_a, bx", (log_a, bx), s0)
     la, b, s0f = _f32(log_a, bx, s0)
     nb, ns, nf = la.shape
@@ -68,6 +83,9 @@ def ssm_scan_bwd(log_a: torch.Tensor, states: torch.Tensor,
     CUDA."""
     if log_a.device.type == "cpu":
         return ssm_scan_bwd_ref(log_a, states, s0, g)
+    if log_a.device.type == "meta":
+        return _on_meta("ssm_scan_bwd", (log_a, states, s0, g),
+                        [log_a.shape, log_a.shape, s0.shape])
     _check("ssm_scan_bwd", "log_a, states, g", (log_a, states, g), s0)
     la, st, s0f, gf = _f32(log_a, states, s0, g)
     nb, ns, nf = la.shape

@@ -5,8 +5,10 @@ the TEL's device, from the canonical sort) and returns ``step(alive, ts,
 te, k, h) -> StepResult``, bit-identical to the composite lowering.  On a
 CUDA TEL every call is one launch of ``csrc/wave_peel.cu``; on a CPU TEL
 the step is the plain version, ``core.wave.make_composite_step`` over the
-plain segment sum.  Any other device, or a TEL the kernel cannot take,
-raises: unlike the JAX package, nothing falls back.  The kernel's one size
+plain segment sum.  On a ``meta`` TEL (a dry run) a call computes nothing
+and returns the outputs' shapes, charging the dry run's cost counter the
+dense count's bytes (``fused_step_cost``).  Any other device, or a TEL the
+kernel cannot take, raises: unlike the JAX package, nothing falls back.  The kernel's one size
 limit is shared memory: V <= 370,688 vertices on an H100
 (:func:`max_vertices`).
 """
@@ -22,6 +24,7 @@ from repro_torch.core.graph import DeviceTEL
 from repro_torch.core.wave import StepResult, lanes, make_composite_step
 from repro_torch.kernels._build import bind, check
 from repro_torch.kernels.segdeg.ops import segment_offsets
+from repro_torch.launch.op_cost import charge_kernel
 
 _INT_ARGS = frozenset({7, 11, 15, 16, 17, 20, 22, 27})
 _I32_MIN = int(np.iinfo(np.int32).min)
@@ -139,6 +142,13 @@ def wave_peel(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts, te, k,
     packed = torch.empty((w, -(-max(v, 1) // 32)), dtype=torch.int32,
                          device=dev)
     lo, hi, ne, iters = torch.empty((4, w), dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        # the windows and the band tables cannot be read here: the dense
+        # count's bytes, which depend on the shapes alone
+        charge_kernel("wave_peel", fused_step_cost(
+            tel.t.shape[0], tel.num_pairs, tel.hp_src.shape[0], v,
+            [0] * w)["bytes"])
+        return packed, lo, hi, ne, iters
     nhp = tel.hp_src.shape[0]
     halves = torch.empty((w, nhp, 4), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -238,15 +248,18 @@ def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
     dev = tel.t.device
     if dev.type == "cpu":
         return make_composite_step(tel, num_vertices, donate=donate)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"wave_peel: unsupported device {dev}")
     v = int(num_vertices)
-    if v > max_vertices():
-        raise ValueError(
-            f"wave_peel: V = {v} vertices do not fit one block's shared "
-            f"memory on this card (the kernel takes V <= {max_vertices()})")
-    _check_tel(tel, v)
-    bands = tel_bands(tel, v)
+    bands = None                    # a meta TEL has no data to check
+    if dev.type == "cuda":
+        if v > max_vertices():
+            raise ValueError(
+                f"wave_peel: V = {v} vertices do not fit one block's shared "
+                f"memory on this card (the kernel takes V <= "
+                f"{max_vertices()})")
+        _check_tel(tel, v)
+        bands = tel_bands(tel, v)
 
     def step(alive, ts, te, k, h):
         if alive.device != dev or alive.dtype != torch.bool or \
@@ -264,6 +277,6 @@ def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
             lanes(k, w, dev), lanes(h, w, dev))
         return StepResult(out, packed, lo, hi, ne, iters.max())
 
-    step.backend = "cuda"
+    step.backend = dev.type
     step.bands = bands
     return step

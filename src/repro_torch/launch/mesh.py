@@ -104,19 +104,13 @@ class Mesh:
         if not dist.is_initialized():
             raise RuntimeError("Mesh: bring the process group up first "
                                "(launch.mesh.init_world)")
-        shape = tuple(int(s) for s in shape)
-        axis_names = tuple(axis_names)
-        if axis_names not in (AXES, AXES_MULTI_POD) or \
-                len(shape) != len(axis_names):
-            raise ValueError(f"mesh axes must be {AXES} or "
-                             f"{AXES_MULTI_POD}, got {axis_names} for "
-                             f"shape {shape}")
-        self.size = dist.get_world_size()
-        self.rank = dist.get_rank()
-        if math.prod(shape) != self.size:
+        n = math.prod(int(s) for s in shape)
+        if n != dist.get_world_size():
             raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs "
-                             f"{math.prod(shape)} ranks; the world has "
-                             f"{self.size}")
+                             f"{n} ranks; the world has "
+                             f"{dist.get_world_size()}")
+        self._place(shape, axis_names, dist.get_rank())
+        shape, axis_names = self.shape, self.axis_names
         self.backend = dist.get_backend()
         self.device = rank_device(self.backend, device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -127,31 +121,15 @@ class Mesh:
             torch.cuda.set_device(self.device)
         self.host_staged = (self.backend == "gloo"
                             and self.device.type == "cuda")
-        # bytes of the operands this rank handed to each data collective
-        # that ran (a group of one runs none): measured, beside the
-        # pipeline's analytic ``collective_bytes`` of the degree combine
-        self.sent_bytes = {"all_reduce": 0, "all_gather": 0,
-                           "reduce_scatter": 0}
-        # bytes of the full tensors the sharded LM assembled because a
-        # leaf's JAX layout does not match a local computation (GSPMD's
-        # gathers: Mamba's in_proj, a head-splitting column block, ...)
-        self.layout_bytes = 0
-        self.shape = shape
-        self.axis_names = axis_names
         from torch.distributed.device_mesh import DeviceMesh
 
         self.device_mesh = DeviceMesh(
             "cuda" if self.backend == "nccl" else "cpu",
             torch.arange(self.size).reshape(shape),
             mesh_dim_names=axis_names)
-        coords = np.unravel_index(self.rank, shape)
-        self.coords = {a: int(c) for a, c in zip(axis_names, coords)}
-        self.model_shards = shape[-1]
-        self.lane_shards = self.size // self.model_shards
-        self.model_index = int(coords[-1])
-        self.lane_index = int(np.ravel_multi_index(coords[:-1], shape[:-1]))
         self.model_group = self.device_mesh.get_group("model")
         self.data_group = self.device_mesh.get_group("data")
+        self._groups = {"model": self.model_group, "data": self.data_group}
         if len(shape) == 2:
             self.lane_group = self.data_group
         else:
@@ -163,6 +141,34 @@ class Mesh:
                 group = dist.new_group(grid[:, mi].tolist())
                 if mi == self.model_index:
                     self.lane_group = group
+
+    def _place(self, shape, axis_names, rank: int) -> None:
+        """Rank ``rank``'s coordinates in a mesh of ``shape``, and its
+        zeroed byte counters."""
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if axis_names not in (AXES, AXES_MULTI_POD) or \
+                len(shape) != len(axis_names):
+            raise ValueError(f"mesh axes must be {AXES} or "
+                             f"{AXES_MULTI_POD}, got {axis_names} for "
+                             f"shape {shape}")
+        self.shape, self.axis_names = shape, axis_names
+        self.size, self.rank = math.prod(shape), int(rank)
+        coords = np.unravel_index(self.rank, shape)
+        self.coords = {a: int(c) for a, c in zip(axis_names, coords)}
+        self.model_shards = shape[-1]
+        self.lane_shards = self.size // self.model_shards
+        self.model_index = int(coords[-1])
+        self.lane_index = int(np.ravel_multi_index(coords[:-1], shape[:-1]))
+        # bytes of the operands this rank handed to each data collective
+        # that ran (a group of one runs none): measured, beside the
+        # pipeline's analytic ``collective_bytes`` of the degree combine
+        self.sent_bytes = {"all_reduce": 0, "all_gather": 0,
+                           "reduce_scatter": 0}
+        # bytes of the full tensors the sharded LM assembled because a
+        # leaf's JAX layout does not match a local computation (GSPMD's
+        # gathers: Mamba's in_proj, a head-splitting column block, ...)
+        self.layout_bytes = 0
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank "
@@ -178,13 +184,27 @@ class Mesh:
                 return self.lane_group
             else:
                 raise ValueError(f"no group over {axes}")
-        if axes == "model":
-            return self.model_group
-        if axes == "data":
-            return self.data_group
+        if axes in self._groups:
+            return self._groups[axes]
         return self.device_mesh.get_group(axes)
 
     # ------------------------------------------------------- collectives
+    # The seam between the bookkeeping and the transport: the size of a
+    # group, the line that counts each data collective's operand bytes,
+    # and the call that moves them.  ``ShapeMesh`` overrides the three.
+    def group_size(self, group) -> int:
+        """The number of ranks in ``group`` (the world when None)."""
+        return dist.get_world_size(group)
+
+    def _note(self, kind: str, x: torch.Tensor, group) -> None:
+        """Count the operand ``x`` this rank hands to a ``kind``
+        collective over ``group``."""
+        self.sent_bytes[kind] += x.nbytes
+
+    def _move(self, call: str, *args, **kwargs) -> None:
+        """Run the ``torch.distributed`` collective ``call``."""
+        getattr(dist, call)(*args, **kwargs)
+
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         return (t.cpu() if self.host_staged else t).contiguous()
 
@@ -193,7 +213,7 @@ class Mesh:
         rank order, bit for bit in any dtype (16-bit floats and bools
         travel as bytes: gloo moves neither 16-bit integers nor, in every
         build, bfloat16)."""
-        if dist.get_world_size(group) == 1:
+        if self.group_size(group) == 1:
             return t
         x = t.movedim(dim, 0).contiguous()
         if t.dtype in (torch.bfloat16, torch.float16, torch.bool):
@@ -206,42 +226,42 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, op, group=None) -> torch.Tensor:
         """Elementwise reduction of ``t`` over ``group`` (the world when
         None); returns the result on ``t``'s device."""
-        if dist.get_world_size(group) == 1:
+        if self.group_size(group) == 1:
             return t
         x = self._wire(t).clone()
-        self.sent_bytes["all_reduce"] += x.nbytes
-        dist.all_reduce(x, op=op, group=group)
+        self._note("all_reduce", x, group)
+        self._move("all_reduce", x, op=op, group=group)
         return x.to(t.device)
 
     def all_gather(self, t: torch.Tensor, group) -> torch.Tensor:
         """Concatenate every group member's ``t`` along dim 0, in group
         rank order."""
-        n = dist.get_world_size(group)
+        n = self.group_size(group)
         if n == 1:
             return t
         x = self._wire(t)
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        self.sent_bytes["all_gather"] += x.nbytes
-        dist.all_gather_into_tensor(out, x, group=group)
+        self._note("all_gather", x, group)
+        self._move("all_gather_into_tensor", out, x, group=group)
         return out.to(t.device)
 
     def reduce_scatter(self, t: torch.Tensor, group) -> torch.Tensor:
         """Sum ``t`` over ``group`` and keep this member's 1/n of dim 0
         (JAX's ``psum_scatter(scatter_dimension=0, tiled=True)``)."""
-        n = dist.get_world_size(group)
+        n = self.group_size(group)
         if n == 1:
             return t
         x = self._wire(t)
         out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-        self.sent_bytes["reduce_scatter"] += x.nbytes
-        dist.reduce_scatter_tensor(out, x, group=group)
+        self._note("reduce_scatter", x, group)
+        self._move("reduce_scatter_tensor", out, x, group=group)
         return out.to(t.device)
 
     def scatter_dim(self, t: torch.Tensor, group, dim: int) -> torch.Tensor:
         """Sum ``t`` over ``group`` and keep this member's block of ``dim``
         (the inverse layout of :meth:`gather_dim`), summed in float32 and
         returned in ``t``'s dtype."""
-        if dist.get_world_size(group) == 1:
+        if self.group_size(group) == 1:
             return t
         x = t.movedim(dim, 0).to(torch.float32).contiguous()
         return self.reduce_scatter(x, group).movedim(0, dim).to(t.dtype)
@@ -287,6 +307,82 @@ class Mesh:
                          else self.device)
         dist.broadcast(t, src=0)
         return float(t.item())
+
+
+class _ShapeGroup:
+    """A group of a :class:`ShapeMesh`: its members' global ranks."""
+
+    def __init__(self, ranks, devices_per_node: int):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.crosses_node = len({r // devices_per_node
+                                 for r in self.ranks}) > 1
+
+
+class ShapeMesh(Mesh):
+    """Rank ``rank`` of a mesh of ``shape`` with no process group, for a
+    dry run on ``meta`` tensors (``launch/dryrun.py``): the coordinates,
+    groups and collectives of a live :class:`Mesh`, whose collectives
+    return ``meta`` tensors of the right shapes and move nothing.  Each
+    data collective is counted by the lines that count a live mesh's
+    ``sent_bytes`` and ``layout_bytes``, and recorded in ``ops`` as a
+    ``launch.analysis.CollectiveOp``: its kind, operand bytes, group size
+    and whether the group spans more than one node of
+    ``devices_per_node`` ranks (consecutive ranks share a node).  The
+    control reads ``any`` and ``clock`` go to ``control_ops`` instead, as
+    ``sent_bytes`` does not count them."""
+
+    def __init__(self, shape, axis_names=AXES, *, rank: int = 0,
+                 devices_per_node: int = 8):
+        from repro_torch.launch.analysis import CollectiveOp
+
+        if not 0 <= int(rank) < math.prod(shape):
+            raise ValueError(f"rank {rank} is outside a mesh of "
+                             f"{math.prod(shape)} ranks")
+        self._place(shape, axis_names, rank)
+        self._op = CollectiveOp
+        self.backend = "shape"
+        self.device = torch.device("meta")
+        self.host_staged = False
+        self.device_mesh = None
+        self.ops = []
+        self.control_ops = []
+        shape, axis_names = self.shape, self.axis_names
+        grid = np.arange(self.size).reshape(shape)
+
+        def along(axis: int):
+            at = [self.coords[a] for a in axis_names]
+            at[axis] = slice(None)
+            return _ShapeGroup(grid[tuple(at)].ravel(), devices_per_node)
+
+        self._groups = {a: along(i) for i, a in enumerate(axis_names)}
+        self._world = _ShapeGroup(range(self.size), devices_per_node)
+        self.model_group = self._groups["model"]
+        self.data_group = self._groups["data"]
+        self.lane_group = (self.data_group if len(shape) == 2 else
+                           _ShapeGroup(grid[..., self.model_index].ravel(),
+                                       devices_per_node))
+
+    def group_size(self, group) -> int:
+        return len((self._world if group is None else group).ranks)
+
+    def _note(self, kind: str, x: torch.Tensor, group) -> None:
+        super()._note(kind, x, group)
+        g = self._world if group is None else group
+        self.ops.append(self._op(kind.replace("_", "-"), int(x.nbytes),
+                                 len(g.ranks), g.crosses_node))
+
+    def _move(self, call: str, *args, **kwargs) -> None:
+        """Nothing moves: the outputs are ``meta`` tensors already."""
+
+    def any(self, flag: bool) -> bool:
+        self.control_ops.append(self._op("all-reduce", 4, self.size,
+                                         self._world.crosses_node))
+        return bool(flag)
+
+    def clock(self) -> float:
+        self.control_ops.append(self._op("broadcast", 8, self.size,
+                                         self._world.crosses_node))
+        return time.perf_counter()
 
 
 # ------------------------------------------- differentiable collectives
@@ -338,7 +434,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh, group, dim: int, *,
     ``layout``: the gather assembles a leaf whose layout does not match the
     local computation; its bytes, and its gradient's, go to
     ``mesh.layout_bytes``."""
-    if dist.get_world_size(group) == 1:
+    if mesh.group_size(group) == 1:
         return t
     return _AllGather.apply(t, mesh, group, dim, layout)
 
@@ -346,7 +442,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh, group, dim: int, *,
 def psum(t: torch.Tensor, mesh: Mesh, group) -> torch.Tensor:
     """``t`` summed over ``group`` (JAX's ``psum``), differentiable: the
     gradient is summed over the group too."""
-    if dist.get_world_size(group) == 1:
+    if mesh.group_size(group) == 1:
         return t
     return _Sum.apply(t, mesh, group)
 

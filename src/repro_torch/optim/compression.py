@@ -45,7 +45,7 @@ def compressed_psum(x: torch.Tensor, axis, error: torch.Tensor, *,
     agree and otherwise off by at most max/min scale - 1 relative, a bias
     the error feedback absorbs."""
     group = mesh.group(axis)
-    n = dist.get_world_size(group)
+    n = mesh.group_size(group)
     target = x.to(torch.float32) + error.to(torch.float32)
     q, scale = quantize_int8(target)
     new_error = (target - q.to(torch.float32) * scale).to(error.dtype)
@@ -62,7 +62,7 @@ def compressed_psum_exact(x: torch.Tensor, axis, error: torch.Tensor, *,
     max of every rank's max |x + error|): an exact dequantize for one
     more scalar all-reduce before the payload."""
     group = mesh.group(axis)
-    n = dist.get_world_size(group)
+    n = mesh.group_size(group)
     target = x.to(torch.float32) + error.to(torch.float32)
     amax = mesh.all_reduce(torch.max(torch.abs(target)), dist.ReduceOp.MAX,
                            group)

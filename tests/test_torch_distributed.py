@@ -604,5 +604,13 @@ def test_world_deadline_and_shed_on_rank_0s_clock(worlds):
     outs, _ = _case(worlds, "2x1-psum")
     d = outs[0]["deadline"]
     assert d["shed"] > 0 and "timeout" in d["statuses"]
-    assert d["journal_refused"]         # the ranks would share one journal
+    # the service journals on the mesh: rank 0 writes, the others follow
+    # it (rank 0's stats and checkpoint record on every rank) and write
+    # nothing
+    j = d["journal"]
+    assert j["stats"]["records_appended"] == 1 and j["stats"]["snapshots"]
+    assert j["checkpoint"]["wal_seq"] == j["stats"]["active_seq"]
+    files = d["journal_files"]          # every rank's directory
+    assert any(f.startswith("snapshot-") for f in files[0])
+    assert files[1:] == [None] * (len(files) - 1)
     assert all(o["deadline"] == d for o in outs)

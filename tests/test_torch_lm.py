@@ -118,9 +118,16 @@ def test_ssm_scan_ref_matches_reference(b, s, f, sc, ft):
 
 
 def test_ssm_scan_raises_on_other_devices():
-    t = torch.zeros((1, 2, 3), device="meta")
+    """A device with neither the kernel nor the plain loop is refused
+    (``meta``, the dry run's shape rule, is tested in
+    tests/test_torch_dryrun.py; this build has no other device, so a
+    stand-in carries one)."""
+    class Elsewhere:
+        device = torch.device("xpu")
+
+    t = Elsewhere()
     with pytest.raises(ValueError, match="unsupported device"):
-        ssm_scan(t, t, torch.zeros((1, 3), device="meta"))
+        ssm_scan(t, t, t)
 
 
 # -------------------------------------------------------------- layers

@@ -229,17 +229,22 @@ def test_serial_tcd_and_coreness_match_reference(seed):
                                       np.asarray(getattr(want, f)))
 
 
+class _Elsewhere:
+    """Stands for a tensor on a device with neither a kernel nor a plain
+    version.  This CPU build has no such device: ``meta`` has the dry
+    run's shape rule (tests/test_torch_dryrun.py)."""
+    device = torch.device("xpu")
+
+
 def test_wrappers_raise_off_cpu_without_a_kernel():
     """A tensor on a device with no kernel is refused, never sent to the
     plain version."""
     g, caps, nv, _, alive, ts, te, k, h = _case(1001, False)
-    meta = _port_tel(g, caps, device="meta")
+    tel = _port_tel(g, caps, device="meta")._replace(t=_Elsewhere())
     with pytest.raises(ValueError, match="unsupported device"):
-        tpeel.make_fused_wave_step(meta, nv)
+        tpeel.make_fused_wave_step(tel, nv)
     with pytest.raises(ValueError, match="unsupported device"):
-        tsegdeg.banded_segsum(torch.zeros((4, 2), device="meta"),
-                              torch.zeros(4, dtype=torch.int32,
-                                          device="meta"), 3)
+        tsegdeg.banded_segsum(_Elsewhere(), _Elsewhere(), 3)
 
 
 # ------------------------------------------- models of the CUDA kernels
