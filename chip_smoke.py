@@ -15,7 +15,12 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    a run of 50,000 rows across many row tiles, Q in {1, 3, 4, 5, 64},
    and two calls equal bit for bit; the composite step with segdeg
    closures equal to the fused step; a small graph's cores equal to the
-   brute-force oracle;
+   brute-force oracle; then the capacity rule at wave_peel's limit: on a
+   graph of V = ``max_vertices()`` vertices (equal to the package's
+   mirror of the kernel's arithmetic) the default engine launches
+   wave_peel and no segdeg, at V + 1 segdeg and no wave_peel, both equal
+   to ``use_kernel=False`` and to the CPU port, and ``use_kernel=True``
+   at V + 1 raises;
 3. drives the main path at the published shape of SNAP sx-mathoverflow
    (24,818 vertices, 506,550 temporal edges, 2,350 days): one
    ``query_batch`` of 8 queries (cold, then warm), each query again
@@ -42,7 +47,7 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    build, profiles one more prefill and four decode steps, and holds the
    smoke-size model on the card to the same model on the CPU;
 7. serves TCQs on the phase-3 graph through ``launch/serve.py``: the
-   closed loop (``serve_closed_loop``, concurrency 8, 120 requests, k=12,
+   closed loop (``serve_closed_loop``, concurrency 8, 32 requests, k=12,
    64-day windows) on the full graph, whose throughput is the service's
    capacity; the open loop (``serve_stream``, the same windows arriving
    at half that capacity) starting from the edges before day 2,200 while
@@ -172,6 +177,20 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    kernels line) against the bytes behind its bound; (d) the roofline
    terms of a (16, 16) Jamba train cell and the tcq-mathoverflow cell, a
    model on datasheet rates, printed;
+16. (run after phase 8, before any gloo world, whose traces lose kernel
+   records) the main path at the repo's tcq-youtube shape: 3,276,800
+   vertices, 9,437,184 edges after self-loops, 8.4 M pairs, a span of
+   2^20 (``youtube_graph``), above wave_peel's shared memory, so every
+   window step is the composite over segdeg.  ``YOUTUBE_REQUESTS`` (8
+   windows of 1/36 to 1/144 of the span, k >= 10, 1-200 cores each;
+   ``python3 chip_smoke.py --pick-youtube`` picks them) through
+   ``query_batch`` cold and warm, looped wave and serial queries and
+   ``TCQService(g)``: every path's cores equal, cold and warm counters
+   equal, wave_peel never launched, segdeg at least twice a peel
+   iteration on the wave paths and never on the serial one.  It prints
+   W, steps, iterations, occupancy, each path's wall time, the card's
+   busy share, where one wave query's host time goes, peak memory and
+   segdeg's time at its two shapes against their bounds;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -501,6 +520,87 @@ def phase_kernels(dev) -> dict:
     log(f"planted_cores: {len(oracle)} cores equal to the brute-force "
         "oracle in wave and serial mode")
     return errs
+
+
+# ------------------------------------- phase 2b: the wave step's boundary
+def boundary_graph(v: int, seed: int = 5):
+    """A graph of ``v`` vertices whose 4,000 edges join 300 seeded
+    vertices, the 8 highest ids among them, over 400 days."""
+    import numpy as np
+    from repro_torch.core.graph import TemporalGraph
+
+    rng = np.random.default_rng(seed)
+    hot = np.concatenate([rng.choice(v - 8, 292, replace=False),
+                          np.arange(v - 8, v)])
+    u = hot[rng.integers(0, hot.size, 4_000)]
+    w = hot[rng.integers(0, hot.size, 4_000)]
+    return TemporalGraph.from_edges(u, w, rng.integers(1, 401, 4_000),
+                                    num_vertices=v)
+
+
+def boundary_requests(g, n: int = 4, seed: int = 3) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    uts = g.unique_ts
+    out = []
+    for _ in range(n):
+        a = int(rng.integers(0, uts.size - 40))
+        out.append({"k": int(rng.integers(2, 5)), "ts": int(uts[a]),
+                    "te": int(uts[a + 39])})
+    return out
+
+
+def phase_boundary(dev) -> dict:
+    """The capacity rule at wave_peel's shared-memory limit: a default
+    engine on a graph of V = ``max_vertices()`` vertices takes the fused
+    kernel, one of V + 1 the composite over segdeg; both answer as
+    ``use_kernel=False`` and the CPU port do, and ``use_kernel=True`` at
+    V + 1 raises.  The library's limit equals the package's mirror of the
+    kernel's arithmetic."""
+    import torch
+    from repro_torch.core import TCQEngine
+    from repro_torch.kernels.wave_peel import ops as peel
+
+    limit = peel.max_vertices()
+    check(limit == peel.mirror_max_vertices(),
+          f"max_vertices() {limit} != the mirror "
+          f"{peel.mirror_max_vertices()}")
+    by_path = {}
+    for v, kernel, other in ((limit, "wave_peel", "segdeg"),
+                             (limit + 1, "segdeg", "wave_peel")):
+        g = boundary_graph(v)
+        reqs = boundary_requests(g)
+        eng = TCQEngine(g)
+        got, wall, n = run_path(lambda: eng.query_batch(reqs))
+        backend = step_backend(eng)
+        path = f"boundary_v{v}"
+        by_path[path] = n
+        check(n[kernel] > 0 and n[other] == 0,
+              f"V={v}: launches {n}, want {kernel} and no {other}")
+        check(backend == ("fused" if kernel == "wave_peel" else
+                          "composite"), f"V={v}: a {backend} step")
+        for ref, what in ((TCQEngine(g, use_kernel=False), "use_kernel="
+                           "False"), (TCQEngine(g, device="cpu"), "the CPU")):
+            want = ref.query_batch(reqs)
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(digest(a) == digest(b),
+                      f"V={v}, request {i}: differs from {what}")
+        log(f"boundary V={v}: {backend} step, {wall:.3f}s, "
+            f"{sum(len(r) for r in got)} cores of {len(reqs)} requests "
+            f"equal to use_kernel=False and the CPU port; launches "
+            f"{json.dumps(n)}")
+        del eng
+    try:
+        TCQEngine(g, use_kernel=True).query_batch(reqs)
+    except ValueError as e:
+        check("shared memory" in str(e), f"use_kernel=True raised {e}")
+    else:
+        raise AssertionError(f"use_kernel=True at V={limit + 1} answered")
+    torch.cuda.synchronize()
+    log(f"boundary: max_vertices() {limit} = the mirror; use_kernel=True "
+        f"at V={limit + 1} raises")
+    return {"limit": limit, "by_path": by_path}
 
 
 # ------------------------------------------------------ launch counters
@@ -1039,6 +1139,8 @@ def phase_lm(dev) -> dict:
 # ------------------------------------------- phase 7: TCQ serving path
 SERVE_CUT_DAY = 2_200       # serving starts from the edges before this day
 SERVE_BATCHES = 4           # the rest arrive as this many push_edges
+SERVE_REQUESTS = 32         # windows a serving path answers (120 before
+                            # phase 16 took its share of the time limit)
 
 
 def ladders(svc) -> list:
@@ -1101,8 +1203,8 @@ def drive_tape(svc, ops, tickets=None):
 
 
 def phase_serve(dev, g, *, cut_day: int = SERVE_CUT_DAY,
-                n_requests: int = 120, load: float = 0.5, k: int = 12,
-                span: int = 64, seed: int = 11) -> dict:
+                n_requests: int = SERVE_REQUESTS, load: float = 0.5,
+                k: int = 12, span: int = 64, seed: int = 11) -> dict:
     """The port's serving stack on ``dev`` through ``launch/serve.py``:
     the closed loop, whose throughput sets the open loop's rate (``load``
     times it), the open loop over a growing graph with a journal, a
@@ -3775,6 +3877,312 @@ def phase_dryrun(dev, state, reqs, sent_13b: dict, kernels: list) -> dict:
     return {"by_path": by_path}
 
 
+# ------------------------------- phase 16: the tcq-youtube shape on the card
+# ``powerlaw_temporal`` at tcq-youtube's vertices and span: alpha puts the
+# distinct pairs near the config's 8,388,608; more edges are drawn than the
+# config's 9,437,184 so that as many remain after self-loops
+YOUTUBE = "tcq-youtube"
+YOUTUBE_ALPHA = 0.9
+YOUTUBE_DRAWN = 9_457_184
+YOUTUBE_SPANS = (36, 72, 144)   # window spans tried, as 1/n of the span
+YOUTUBE_N = 8                   # queries phase 16 answers
+# (k, ts, te, cores) of phase 16's queries, as ``python3 chip_smoke.py
+# --pick-youtube`` picks them (``pick_youtube_queries``, 3 minutes on an
+# H100, so not in the phase).  At this shape 23 of the 24 windows of 1/36
+# of the span it tried had more than 200 cores even at their largest k
+# with a core, so each window takes the widest span, then the smallest
+# k >= 10, whose query gives 1 to 200
+YOUTUBE_REQUESTS = (
+    (15, 138_353, 152_915, 200), (23, 505_869, 513_149, 130),
+    (21, 132_298, 161_424, 12), (10, 780_034, 787_314, 166),
+    (15, 1_009_418, 1_016_698, 38), (10, 644_902, 652_182, 68),
+    (10, 896_146, 903_426, 50), (10, 532_260, 539_540, 102))
+
+
+def count_cores(eng, g, k: int, ts: int, te: int, cap: int) -> int:
+    """Distinct cores of the query (k, [ts, te]) through the engine's lane
+    pool, or ``cap + 1`` once the count passes ``cap`` (the query is
+    cancelled there)."""
+    import numpy as np
+    from repro_torch.core.results import QueryStats
+    from repro_torch.core.scheduler import QueryState
+
+    uts = g.unique_ts
+    uts = uts[(uts >= ts) & (uts <= te)].astype(np.int64)
+    if uts.size == 0:
+        return 0
+    pipe, _, _ = eng.make_pool(int(uts[0]), int(uts[-1]))
+    qs = QueryState(uts, k, 1, True, QueryStats(n_timestamps=int(uts.size)))
+
+    def admit():
+        if len(qs.collected) > cap:
+            qs.cancel()
+        return []
+
+    pipe.run_pool([qs], QueryStats(), admit=admit)
+    return min(len(qs.collected), cap + 1)
+
+
+def pick_youtube_queries(eng, g, n: int, k0: int, seed: int = 11,
+                         max_results: int = 200) -> list:
+    """``n`` query windows for phase 16 (``python3 chip_smoke.py
+    --pick-youtube`` prints them): centred at seeded times, each of the
+    widest span of ``YOUTUBE_SPANS`` with a k >= k0 whose query returns
+    1..max_results cores, at the smallest such k, found walking k down
+    from the largest k whose core of the whole window is not empty until
+    the count passes max_results (the count falls as k rises).  A centre
+    where no span does is drawn again."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tcd
+
+    rng = np.random.default_rng(seed)
+    t_lo, t_hi = int(g.unique_ts[0]), int(g.unique_ts[-1])
+    total = t_hi - t_lo + 1
+    ones = torch.ones(eng.num_vertices, dtype=torch.bool, device=eng.device)
+    out = []
+    for _ in range(6 * n):
+        if len(out) == n:
+            break
+        mid = int(rng.integers(t_lo + total // 72, t_hi - total // 72))
+        for div in YOUTUBE_SPANS:
+            span = total // div
+            ts = mid - span // 2
+            te = ts + span - 1
+            alive, top = ones, k0 - 1
+            while True:             # warm-started: a k-core holds the next
+                r = tcd(eng.tel, alive, ts, te, top + 1, 1,
+                        num_vertices=eng.num_vertices)
+                if int(r.n_edges) == 0:
+                    break
+                alive, top = r.alive, top + 1
+            best = None
+            for k in range(top, k0 - 1, -1):
+                m = count_cores(eng, g, k, ts, te, max_results)
+                if m > max_results:
+                    break
+                best = {"k": k, "ts": ts, "te": te, "cores": m,
+                        "span": f"1/{div}"}
+            log(f"pick: centre {mid}, span 1/{div}: largest k {top}, "
+                f"{best}")
+            if best is not None:
+                out.append(best)
+                break
+    check(len(out) == n, f"found {len(out)} of {n} valid queries")
+    return out
+
+
+def youtube_graph():
+    """(config, graph, build seconds) of phase 16: ``powerlaw_temporal``
+    at tcq-youtube's vertices and span, its pairs held within 5% of the
+    config's and at least its edges left after self-loops."""
+    import numpy as np
+    from repro_torch.configs import get_tcq_config
+    from repro_torch.graphs import powerlaw_temporal
+
+    cfg = get_tcq_config(YOUTUBE)
+    t0 = time.perf_counter()
+    g = powerlaw_temporal(num_vertices=cfg.num_vertices,
+                          num_edges=YOUTUBE_DRAWN, time_span=cfg.time_span,
+                          alpha=YOUTUBE_ALPHA, burst_periods=14, seed=11)
+    build_s = time.perf_counter() - t0
+    deg = np.bincount(np.concatenate([g.pair_u, g.pair_v]),
+                      minlength=g.num_vertices)
+    log(f"16 graph ({YOUTUBE} shape, alpha {YOUTUBE_ALPHA}, "
+        f"{YOUTUBE_DRAWN} edges drawn): |V|={g.num_vertices} "
+        f"|E|={g.num_edges} |P|={g.num_pairs} (config {cfg.num_pairs}, "
+        f"{100 * (g.num_pairs / cfg.num_pairs - 1):+.2f}%), largest degree "
+        f"{int(deg.max())} distinct neighbours, unique t "
+        f"{g.unique_ts.size}, built in {build_s:.1f}s")
+    check(g.num_vertices == cfg.num_vertices, "vertex count")
+    check(g.num_edges >= cfg.num_edges,
+          f"{g.num_edges} edges after self-loops < {cfg.num_edges}")
+    check(abs(g.num_pairs - cfg.num_pairs) <= 0.05 * cfg.num_pairs,
+          f"{g.num_pairs} pairs: not within 5% of {cfg.num_pairs}")
+    return cfg, g, build_s
+
+
+def pick_youtube() -> int:
+    """``python3 chip_smoke.py --pick-youtube``: print phase 16's queries
+    (``YOUTUBE_REQUESTS``) as ``pick_youtube_queries`` finds them."""
+    import torch
+    from repro_torch.core import TCQEngine
+
+    cfg, g, _ = youtube_graph()
+    eng = TCQEngine(g)
+    t0 = time.perf_counter()
+    reqs = pick_youtube_queries(eng, g, YOUTUBE_N, cfg.k)
+    torch.cuda.synchronize()
+    log(f"picked in {time.perf_counter() - t0:.1f}s")
+    print(json.dumps(reqs))
+    return 0
+
+
+def phase_youtube(dev) -> dict:
+    """The main path at the repo's tcq-youtube shape (3,276,800 vertices,
+    9,437,184 edges, a span of 2^20): above wave_peel's shared memory, so
+    every window step is the composite over segdeg.  ``query_batch`` cold
+    and warm, looped wave and serial queries and ``TCQService`` answer
+    ``YOUTUBE_REQUESTS``, each path with the launch counters zeroed
+    before it; all equal."""
+    import torch
+    from repro_torch.core import TCQEngine, TCQService
+    from repro_torch.core.scheduler import autotune_wave
+    from repro_torch.kernels.segdeg.ops import (banded_segsum,
+                                                segment_offsets)
+    from repro_torch.kernels.wave_peel.ops import max_vertices
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"     # (a CPU rehearsal counts no launch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg, g, build_s = youtube_graph()
+    check(g.num_vertices > max_vertices(), "the graph fits wave_peel")
+
+    t0 = time.perf_counter()
+    eng = TCQEngine(g)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    check(eng.device == dev, f"engine on {eng.device}, not {dev}")
+    tel_bytes = sum(x.numel() * x.element_size() for x in eng.tel)
+    reqs = [{"k": k, "ts": ts, "te": te} for k, ts, te, _ in
+            YOUTUBE_REQUESTS[:YOUTUBE_N]]
+    log(f"16 engine installed in {install_s:.2f}s (whole TEL "
+        f"{tel_bytes} bytes on the card); {len(reqs)} queries (k, ts, te, "
+        "cores as picked): " + json.dumps(YOUTUBE_REQUESTS[:YOUTUBE_N]))
+
+    batch, cold_s, n_cold = run_path(lambda: eng.query_batch(reqs))
+    batch2, warm_s, n_warm = run_path(lambda: eng.query_batch(reqs))
+    waves, wave_s, n_wave = run_path(lambda: [
+        eng.query(r["k"], r["ts"], r["te"], mode="wave") for r in reqs])
+    serials, serial_s, n_serial = run_path(lambda: [
+        eng.query(r["k"], r["ts"], r["te"], mode="serial") for r in reqs])
+
+    def serve():
+        svc = TCQService(g)
+        tks = [svc.submit({"k": r["k"], "ts": r["ts"], "te": r["te"]})
+               for r in reqs]
+        svc.run_until_idle()
+        return svc, tks
+
+    (svc, tks), svc_s, n_svc = run_path(serve)
+    by_path = {"youtube_batch_cold": n_cold, "youtube_batch_warm": n_warm,
+               "youtube_wave": n_wave, "youtube_serial": n_serial,
+               "youtube_service": n_svc}
+    log(f"16 launches by path: {json.dumps(by_path)}")
+
+    for i, (k, _, _, cores) in enumerate(YOUTUBE_REQUESTS[:YOUTUBE_N]):
+        want = digest(batch[i])
+        check(len(batch[i]) == cores and 1 <= cores <= 200 and k >= cfg.k,
+              f"16 query {i}: {len(batch[i])} cores at k={k}, picked "
+              f"{cores}")
+        for what, res in (("warm batch", batch2[i]), ("wave", waves[i]),
+                          ("serial", serials[i]),
+                          ("service", tks[i].result)):
+            check(res is not None and digest(res) == want,
+                  f"16 query {i}: {what} differs from the cold batch")
+    check(counters(batch) == counters(batch2),
+          "16: warm batch's schedule counters differ from the cold one's")
+    for e in (eng, svc.engine):
+        backends = {getattr(wt.step_fn, "backend", "?")
+                    for wt in e._win_cache.values()}
+        check(backends == {"composite"}, f"16: window steps {backends}")
+
+    def expect(path, kernel, ok, want):
+        got = by_path[path][kernel]
+        check(not on_card or ok(got), f"16 {path}: {kernel} launched {got} "
+              f"times, want {want}")
+
+    iters = {"youtube_batch_cold": batch[0].stats.peel_iters,
+             "youtube_batch_warm": batch2[0].stats.peel_iters,
+             "youtube_wave": sum(w.stats.peel_iters for w in waves),
+             "youtube_service": max(tk.result.stats.peel_iters
+                                    for tk in tks)}
+    for path in by_path:
+        expect(path, "wave_peel", lambda n: n == 0, "0")
+        expect(path, "ssm_scan", lambda n: n == 0, "0")
+        expect(path, "ssm_scan_bwd", lambda n: n == 0, "0")
+    for path, it in iters.items():
+        expect(path, "segdeg", lambda n: n >= 2 * it,
+               f">= 2 x {it} peel iterations")
+    expect("youtube_serial", "segdeg", lambda n: n == 0, "0")
+
+    st = batch[0].stats
+    W = autotune_wave(eng.num_vertices, st.window_edges,
+                      num_queries=len(reqs))
+    log(f"16 main path: {len(reqs)} queries, "
+        f"{sum(len(b) for b in batch)} cores, equal across query_batch "
+        "(cold, warm), looped wave, looped serial and TCQService; cold and "
+        "warm schedule counters equal; every window step composite")
+    log(f"16 query_batch: W={W} (autotune_wave), union window "
+        f"{st.window_edges} edges; cold {cold_s:.3f}s, warm {warm_s:.3f}s "
+        f"({len(reqs) / warm_s:.3f} queries/s); {st.device_steps} device "
+        f"steps, {st.peel_iters} peel iterations, {st.occupancy:.2f} mean "
+        f"occupied lanes; looped wave {wave_s:.3f}s "
+        f"({sum(w.stats.device_steps for w in waves)} steps, "
+        f"{iters['youtube_wave']} peel iterations); looped serial "
+        f"{serial_s:.3f}s ({sum(x.stats.cells_evaluated for x in serials)} "
+        f"cells); TCQService {svc_s:.3f}s")
+    del svc, tks, waves, serials, batch2
+
+    busy = profiled(lambda: eng.query_batch(reqs), "16 query_batch (warm)",
+                    cpu_ops=False)
+    peak = torch.cuda.max_memory_allocated()
+    # where the host's time goes: one wave query under cProfile
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    r0 = reqs[0]
+    prof.enable()
+    eng.query(r0["k"], r0["ts"], r0["te"], mode="wave")
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
+    log("16 host time of query 0 in wave mode by function (cProfile, own "
+        "time): " + "; ".join(
+            f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {st[2]:.3f}s x {st[1]}"
+            for fn, st in rows[:8]))
+    log(f"16 device: busy share {busy if busy is None else round(busy, 4)}"
+        f"; peak memory {peak} bytes; whole TEL {tel_bytes} bytes")
+
+    # segdeg at the composite's two reductions on the batch's union TEL:
+    # [E, W] edges -> [P, W] pairs, [2P, W] half-pairs -> [V, W] vertices
+    lo = min(r["ts"] for r in reqs)
+    hi = max(r["te"] for r in reqs)
+    wt = eng._window_tel(lo, hi)
+    tel = wt.tel
+    gen = torch.Generator(device=dev).manual_seed(16)
+    seg_rows = {}
+    for name, ids, s in (("edges to pairs", tel.pair_id, tel.num_pairs),
+                         ("half-pairs to vertices", tel.hp_src,
+                          wt.num_vertices)):
+        vals = (torch.rand((ids.shape[0], W), generator=gen, device=dev)
+                < 0.5).to(torch.float32)
+        off = segment_offsets(ids, s)
+        got = banded_segsum(vals, ids, s, offsets=off)
+        want = torch.zeros((s + 1, W), dtype=torch.float32, device=dev)
+        want = want.index_add_(0, ids.clamp(max=s).long(), vals)[:s]
+        check(torch.equal(got, want), f"16 segdeg {name}: not exact")
+        ms = time_ms(lambda: banded_segsum(vals, ids, s, offsets=off), 10)
+        dev_ms, trace = device_ms(lambda: banded_segsum(vals, ids, s,
+                                                        offsets=off),
+                                  10, "segdeg_kernel")
+        nvalid = int(off[-1])
+        b_ms, b_by = bound(4 * nvalid * W + 4 * nvalid + 4 * (s + 1)
+                           + 4 * s * W, nvalid * W)
+        n = int(ids.shape[0])
+        seg_rows[name] = {"N": n, "Q": W, "S": s, "ms": ms,
+                          "device_ms": dev_ms, "device_trace": trace,
+                          "bound_ms": b_ms, "bound_by": b_by}
+        log(f"16 segdeg, {name}: values [{n}, {W}] -> [{s}, {W}], exact; "
+            f"{ms:.4f} ms a call (CUDA events), device time "
+            f"{fmt_ms(dev_ms)} (trace {trace}); bound {b_ms:.5f} ms ({b_by}, the {nvalid} "
+            f"rows with an id below {s})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 16 took {phase_s:.1f}s")
+    return {"by_path": by_path, "segdeg": seg_rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -3789,6 +4197,8 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--pick-youtube"]:
+        return pick_youtube()
     t_start = time.perf_counter()
     dev = torch.device("cuda")
 
@@ -3817,7 +4227,8 @@ def main() -> int:
         log(f"-- {phase} done at {time.perf_counter() - t_start:.1f}s")
 
     errs = phase_kernels(dev)
-    done("phase 2 (kernels)")
+    bounds = phase_boundary(dev)
+    done("phase 2 (kernels, and the wave step's boundary)")
     main_run = phase_main(dev)
     done("phase 3 (main path)")
     phase_profile(main_run)
@@ -3836,6 +4247,13 @@ def main() -> int:
     done("phase 7 (serving)")
     base = phase_baseline(dev, g, main_run["reqs"][0])
     done("phase 8 (baseline)")
+    # before any gloo world: traces taken after one lose kernel records
+    youtube = phase_youtube(dev)
+    for k in kernels:
+        if k["name"] == "segdeg":
+            k["at_youtube_shape"] = youtube["segdeg"]
+    torch.cuda.empty_cache()
+    done("phase 16 (the tcq-youtube shape)")
     meshed = phase_mesh(dev, g, main_run, served["capacity_qps"])
     done("phase 11 (the sharded pipeline)")
     for key in ("batch", "comp"):
@@ -3877,11 +4295,12 @@ def main() -> int:
     dry = phase_dryrun(dev, g_state, main_run["reqs"],
                        mesh_train["sent_13b"], kernels)
     done("phase 15 (the dry run)")
-    by_path = {**main_run["by_path"], **lm["by_path"], **served["by_path"],
+    by_path = {**bounds["by_path"], **main_run["by_path"], **lm["by_path"], **served["by_path"],
                **base["by_path"], **meshed["by_path"], **fam["by_path"],
                **sharded["by_path"], **train_smoke, **trained["by_path"],
                **lifecycle["by_path"], **mesh_train["by_path"],
-               **mesh_wal["by_path"], **dry["by_path"]}
+               **mesh_wal["by_path"], **dry["by_path"],
+               **youtube["by_path"]}
     for k in kernels:       # ``launches`` sums the per-path counts
         per = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"], k["launches_by_path"] = sum(per.values()), per

@@ -507,22 +507,28 @@ def lane_sharded(mesh, local_step, *, backend: str):
 
 
 def make_sharded_kernel_step(mesh, tel, num_vertices: int, *,
-                             donate: bool = False):
+                             donate: bool = False,
+                             use_kernel: Optional[bool] = None):
     """The fused wave_peel kernel as the per-rank step: this rank's lanes
     against the whole window TEL, results gathered over the lanes.
 
     Only meshes with one model shard qualify (edges replicated, lanes
-    sharded over pod x data); returns None on others, where the composite
-    step over segdeg is the path.  On a CUDA TEL a shape the kernel
-    declines raises (``make_fused_wave_step``); on a CPU TEL the step is
-    the kernel's plain version.
+    sharded over pod x data), and only where ``use_kernel`` asks for the
+    kernel under the capacity rule (``wave_peel.ops.wants_kernel``: None
+    takes it on CUDA for a V that fits its shared memory); returns None
+    otherwise, where the composite step over segdeg is the path.
+    ``use_kernel=True`` on a V above the limit raises
+    (``make_fused_wave_step``); on a CPU TEL the step is the kernel's
+    plain version.
     """
     L, m = mesh_shard_counts(mesh)
     if m != 1:
         return None
-    from repro_torch.kernels.wave_peel.ops import make_fused_wave_step
+    from repro_torch.kernels.wave_peel import ops as peel
 
-    fused = make_fused_wave_step(tel, num_vertices, donate=donate)
+    if not peel.wants_kernel(use_kernel, num_vertices, mesh.device):
+        return None
+    fused = peel.make_fused_wave_step(tel, num_vertices, donate=donate)
     return lane_sharded(mesh, fused, backend=fused.backend)
 
 
@@ -539,6 +545,8 @@ class ShardedDegradationLadder(DegradationLadder):
     :class:`~repro_torch.core.wave.DegradationLadder`, demotion is for CPU
     tensors only: on the card the ladder holds the one rung the mesh's
     shape routes to, and logs then raises a failure or a divergence.
+    A fused rung the mesh's shape or the capacity rule leaves out is
+    logged once (``"multi_shard"``, ``"smem_limit"``).
 
     ``tel`` is the whole window: the fused rung's input on the mesh's
     device when the mesh has one model shard, else only the oracle's,
@@ -547,7 +555,7 @@ class ShardedDegradationLadder(DegradationLadder):
 
     def __init__(self, mesh, arrays, tel, num_vertices: int, *,
                  p_cap: int, combine: str = "psum",
-                 use_kernel: bool = False,
+                 use_kernel: Optional[bool] = False,
                  config: Optional[ResilienceConfig] = None):
         # DegradationLadder.__init__'s state by hand: these rungs are the
         # sharded lowerings
@@ -559,15 +567,21 @@ class ShardedDegradationLadder(DegradationLadder):
         self.demotes = mesh.device.type != "cuda"
         self._rng = np.random.default_rng(self.config.seed)
         L, m = mesh_shard_counts(mesh)
+        from repro_torch.kernels.wave_peel import ops as peel
+
         rungs = []
-        if use_kernel:
-            if m != 1:
-                self._log("fused", "multi_shard",
-                          f"model={m}: the fused kernel peels a whole TEL; "
-                          "kernel-within-shard needs a lane-only mesh")
-            else:
-                rungs.append(("fused", make_sharded_kernel_step(
-                    mesh, tel, num_vertices)))
+        asked = (mesh.device.type in ("cuda", "meta") if use_kernel is None
+                 else bool(use_kernel))
+        reason = peel.declined(use_kernel, num_vertices, mesh.device)
+        if asked and m != 1:
+            self._log("fused", "multi_shard",
+                      f"model={m}: the fused kernel peels a whole TEL; "
+                      "kernel-within-shard needs a lane-only mesh")
+        elif reason is not None:
+            self._log("fused", "smem_limit", reason)
+        elif asked:
+            rungs.append(("fused", make_sharded_kernel_step(
+                mesh, tel, num_vertices, use_kernel=True)))
         if self.demotes or not rungs:
             rungs.append(("composite", make_sharded_step_fn(
                 mesh, arrays, num_vertices=num_vertices, p_cap=p_cap,
@@ -769,8 +783,9 @@ class DistributedTCQ:
 
     On a one-rank mesh the sharded program degenerates to the composite
     with no collectives, so it routes through
-    ``core.wave.make_wave_step_fn`` instead: the fused kernel on the card,
-    its plain version on the CPU (``use_fused=False`` keeps the sharded
+    ``core.wave.make_wave_step_fn`` instead: on the card the fused kernel
+    where V fits its shared memory and the composite over segdeg above
+    it, plain versions on the CPU (``use_fused=False`` keeps the sharded
     program).  Meshes of several ranks always run the sharded step.
     """
 

@@ -108,9 +108,13 @@ class TCQEngine:
     """Holds the device TEL for one temporal graph and answers TCQs on it.
 
     ``device`` defaults to CUDA (raising without it).  ``use_kernel``
-    selects the wave step: True the fused wave-peel kernel, False the
+    selects the wave step: True the fused wave-peel kernel (raising for a
+    graph whose vertex capacity exceeds its shared memory), False the
     composite lowering (torch gathers + the segdeg kernel), None (default)
-    the fused kernel on CUDA.  On the CPU both run plain PyTorch.
+    a choice made for each window TEL when its step is built: the fused
+    kernel on CUDA where V fits it (V <= 370,688 on an H100,
+    ``wave_peel.ops.fits``), the composite above that.  On the CPU both
+    run plain PyTorch.
 
     ``degree_fn`` (second positional, as in the JAX package) replaces the
     degree semantics on the serial path (see the module docstring); it
@@ -171,8 +175,8 @@ class TCQEngine:
         self._shard_plan = None
         self._plan_arrays = None
         self.device = resolve_device(device)
-        self._use_kernel = (self.device.type == "cuda"
-                            if use_kernel is None else bool(use_kernel))
+        # the request; each window's step applies the capacity rule to it
+        self._use_kernel = None if use_kernel is None else bool(use_kernel)
         self._degree_fn = degree_fn
         if cache is True:
             cache = CoreCache()
@@ -267,19 +271,22 @@ class TCQEngine:
         ships this rank's edge shards (called only when a composite rung
         or the ladder reads them), ``tel`` is the whole window TEL (the
         fused kernel's input, on the device, with one model shard; the
-        oracle's, on the host, when edges are sharded; else None).  With
-        ``use_kernel`` one model shard takes the fused kernel and several
-        the composite over segdeg; a kernel that declines the TEL on the
-        card raises."""
+        oracle's, on the host, when edges are sharded; else None).  One
+        model shard takes the fused kernel where ``use_kernel`` and the
+        capacity rule give it (``make_sharded_kernel_step``), several the
+        composite over segdeg; ``use_kernel=True`` on a V the kernel cannot
+        take raises."""
         plan = self._shard_plan
         if self._resilience is not None:
             return ShardedDegradationLadder(
                 self.mesh, shards(), tel, self._v_cap, p_cap=plan.p_cap,
                 combine=self._combine, use_kernel=self._use_kernel,
                 config=self._resilience)
-        if self._use_kernel and self._model_shards == 1:
-            return make_sharded_kernel_step(self.mesh, tel, self._v_cap,
-                                            donate=True)
+        step = make_sharded_kernel_step(self.mesh, tel, self._v_cap,
+                                        donate=True,
+                                        use_kernel=self._use_kernel)
+        if step is not None:
+            return step
         return make_sharded_step_fn(
             self.mesh, shards(), num_vertices=self._v_cap, p_cap=plan.p_cap,
             combine=self._combine, donate=True)

@@ -14,9 +14,13 @@ pack for W lanes) — has two lowerings behind one dispatcher,
     gathers plus the two segment sums, which launch the ``kernels/segdeg``
     CUDA kernel on the card and run its plain version on the CPU.
 
-On CPU tensors both lowerings run plain PyTorch; on CUDA tensors each runs
-its kernel or raises, with or without a :class:`ResilienceConfig`, which
-on the card only logs the failure (:class:`DegradationLadder`).  All of
+On the card the dispatcher builds the fused step for a TEL whose V fits
+the kernel's shared memory (``wave_peel.ops.fits``: V <= 370,688 on an
+H100) and the composite above it, as the JAX package leaves its Pallas
+step above its VMEM budget.  On CPU tensors both lowerings run plain
+PyTorch; on CUDA tensors each runs its kernel or raises, with or without
+a :class:`ResilienceConfig`, which on the card only logs the failure
+(:class:`DegradationLadder`).  All of
 them are bit-identical to the JAX package's lowerings on every
 ``StepResult`` field (tests/test_torch_wave.py).
 
@@ -316,8 +320,8 @@ class ResilienceConfig:
         build time — the fault-injection seam (``core/faultinject.py``).
 
     The JAX package's ``interpret`` and ``vmem_budget_bytes`` have no
-    counterpart: the kernel has no interpret mode, and a V above its
-    shared-memory limit (``wave_peel.ops.max_vertices()``) raises.
+    counterpart: the kernel has no interpret mode, and its size limit is
+    the card's shared memory (``wave_peel.ops.fits``), not a knob.
     """
 
     tripwire_every: int = 64
@@ -348,10 +352,17 @@ class DegradationLadder:
     wave_peel kernel, or the composite over the segdeg kernel): a build
     failure raises, and a failed call or a tripwire divergence is logged
     in ``events`` and raised, never replayed elsewhere.
+
+    ``use_kernel`` is the request, as :func:`make_wave_step_fn` takes it.
+    When the capacity rule turns an automatic request away from the fused
+    kernel (V above its shared memory), the ladder starts on the
+    composite and logs one ``"smem_limit"`` event, as the JAX ladder logs
+    ``"vmem_budget"``.
     """
 
     def __init__(self, tel: DeviceTEL, num_vertices: int, *,
-                 seg_pair=None, seg_vert=None, use_kernel: bool = False,
+                 seg_pair=None, seg_vert=None,
+                 use_kernel: Optional[bool] = False,
                  config: Optional[ResilienceConfig] = None):
         self.config = config or ResilienceConfig()
         self.events = []            # [{rung, reason, detail, call}]
@@ -363,14 +374,16 @@ class DegradationLadder:
             seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
         if seg_vert is None:
             seg_vert = make_banded_segsum(num_vertices, tel.hp_src)
-        rungs = []
-        if use_kernel:
-            from repro_torch.kernels.wave_peel.ops import \
-                make_fused_wave_step
+        from repro_torch.kernels.wave_peel import ops as peel
 
-            rungs.append(("fused", make_fused_wave_step(
+        rungs = []
+        reason = peel.declined(use_kernel, num_vertices, tel.t.device)
+        if reason is not None:
+            self._log("fused", "smem_limit", reason)
+        elif peel.wants_kernel(use_kernel, num_vertices, tel.t.device):
+            rungs.append(("fused", peel.make_fused_wave_step(
                 tel, num_vertices, donate=False)))
-        if self.demotes or not use_kernel:
+        if self.demotes or not rungs:
             rungs.append(("composite", make_composite_step(
                 tel, num_vertices, seg_pair=seg_pair, seg_vert=seg_vert,
                 donate=False)))
@@ -457,12 +470,15 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
     """Build the device step for one TEL: ``step(alive, ts, te, k, h) ->
     StepResult`` with a ``.backend`` attribute.
 
-    use_kernel=True takes the fused wave-peel kernel, False the composite
-    lowering over ``seg_pair``/``seg_vert`` (by default the segdeg
-    closures: the kernel on CUDA, never the plain segment sum there);
-    None picks the fused kernel for a TEL on CUDA and the composite on the
-    CPU.  On CPU tensors either choice runs plain PyTorch.  There is no
-    shape fallback: a shape the kernel cannot take raises.
+    use_kernel=True takes the fused wave-peel kernel (raising for a V
+    above its shared memory), False the composite lowering over
+    ``seg_pair``/``seg_vert`` (by default the segdeg closures: the kernel
+    on CUDA, never the plain segment sum there); None applies the
+    capacity rule once, here: the fused kernel for a TEL on CUDA (or
+    ``meta``) whose V fits it (``wave_peel.ops.fits``), the composite
+    above that and on the CPU.  ``.backend`` says which was built
+    (``"fused"`` or ``"composite"``).  On CPU tensors either choice runs
+    plain PyTorch.
     ``donate=True`` peels the caller's ``alive`` buffer in place (the
     pipeline's persistent lane slab); leave it False when the caller
     reuses its buffer.
@@ -476,17 +492,14 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
     raises every failure.  Ladder rungs never donate (``donate`` is
     ignored): a replay and the tripwire need their inputs intact.
     """
-    if use_kernel is None:
-        use_kernel = tel.t.is_cuda
+    from repro_torch.kernels.wave_peel import ops as peel
+
     if resilience is not None:
         return DegradationLadder(tel, num_vertices, seg_pair=seg_pair,
-                                 seg_vert=seg_vert,
-                                 use_kernel=bool(use_kernel),
+                                 seg_vert=seg_vert, use_kernel=use_kernel,
                                  config=resilience)
-    if use_kernel:
-        from repro_torch.kernels.wave_peel.ops import make_fused_wave_step
-
-        return make_fused_wave_step(tel, num_vertices, donate=donate)
+    if peel.wants_kernel(use_kernel, num_vertices, tel.t.device):
+        return peel.make_fused_wave_step(tel, num_vertices, donate=donate)
     if seg_pair is None:
         seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
     if seg_vert is None:

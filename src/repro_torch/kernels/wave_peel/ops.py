@@ -8,14 +8,23 @@ the step is the plain version, ``core.wave.make_composite_step`` over the
 plain segment sum.  On a ``meta`` TEL (a dry run) a call computes nothing
 and returns the outputs' shapes, charging the dry run's cost counter the
 dense count's bytes (``fused_step_cost``).  Any other device, or a TEL the
-kernel cannot take, raises: unlike the JAX package, nothing falls back.  The kernel's one size
-limit is shared memory: V <= 370,688 vertices on an H100
-(:func:`max_vertices`).
+kernel cannot take, raises.
+
+The kernel's one size limit is shared memory: V <= 370,688 vertices on an
+H100 (:func:`max_vertices` from the built library, :func:`mirror_max_vertices`
+where none is loaded).  :func:`fits` is the capacity rule the dispatchers
+(``core.wave.make_wave_step_fn``, the ladders,
+``core.distributed.make_sharded_kernel_step``) apply once per window TEL,
+when its step is built: a step asked for with ``use_kernel=None`` is this
+kernel where the TEL's V fits, else the composite step over the segdeg
+kernel, as the JAX package leaves its Pallas step for the composite above
+its VMEM budget.  ``use_kernel=True`` asks for this kernel whatever V, and
+raises above the limit.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -127,6 +136,65 @@ def max_vertices() -> int:
     """Largest V the kernel takes on this card (its shared memory); -1 if
     the card cannot be queried."""
     return bind("wave_peel_max_vertices", frozenset(), 0)()
+
+
+# ``wave_peel_max_vertices``' arithmetic, for where no library is loaded (a
+# ``meta`` TEL models an H100): each of a lane's 8 cluster blocks holds the
+# lane's mask and its slice's degree counters, 5 bytes a vertex slot, in
+# the shared memory a block may opt in to less the kernel's static shared
+# memory (``ptxas -v``), whole 32-vertex mask words a block.
+CLUSTER_BLOCKS = 8
+H100_SMEM_OPTIN = 232_448       # cudaDevAttrMaxSharedMemoryPerBlockOptin
+KERNEL_STATIC_SMEM = 656        # wave_peel_kernel's static shared bytes
+
+
+def mirror_max_vertices() -> int:
+    """:func:`max_vertices` on an H100, computed without the library."""
+    room = H100_SMEM_OPTIN - KERNEL_STATIC_SMEM
+    return room // 5 // 32 * 32 * CLUSTER_BLOCKS
+
+
+def vertex_limit(device) -> Optional[int]:
+    """Largest V the fused step takes on ``device``: the built library's on
+    CUDA, the mirror on ``meta``; None (no limit) elsewhere, where the
+    step is the plain version."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return max_vertices()
+    if dev.type == "meta":
+        return mirror_max_vertices()
+    return None
+
+
+def fits(num_vertices: int, device) -> bool:
+    """The capacity rule: whether the fused step takes a TEL of
+    ``num_vertices`` vertices on ``device``."""
+    limit = vertex_limit(device)
+    return limit is None or int(num_vertices) <= limit
+
+
+def wants_kernel(use_kernel: Optional[bool], num_vertices: int,
+                 device) -> bool:
+    """Whether a step asked for with ``use_kernel`` is the fused kernel:
+    True and False as given, None the kernel on CUDA and ``meta`` where
+    the TEL :func:`fits`, else the composite."""
+    if use_kernel is not None:
+        return bool(use_kernel)
+    dev = torch.device(device)
+    return dev.type in ("cuda", "meta") and fits(num_vertices, dev)
+
+
+def declined(use_kernel: Optional[bool], num_vertices: int,
+             device) -> Optional[str]:
+    """Why the capacity rule turned an automatic request
+    (``use_kernel=None``) on CUDA or ``meta`` away from the kernel, as a
+    ladder's ``smem_limit`` event says it; None when it did not."""
+    dev = torch.device(device)
+    if use_kernel is not None or dev.type not in ("cuda", "meta") or \
+            fits(num_vertices, dev):
+        return None
+    return (f"V={int(num_vertices)} > {vertex_limit(dev)}: the fused "
+            "kernel's shared memory; the composite over segdeg peels it")
 
 
 def wave_peel(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts, te, k,
@@ -251,13 +319,13 @@ def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"wave_peel: unsupported device {dev}")
     v = int(num_vertices)
+    if not fits(v, dev):
+        raise ValueError(
+            f"wave_peel: V = {v} vertices do not fit one block's shared "
+            f"memory on this card (the kernel takes V <= "
+            f"{vertex_limit(dev)})")
     bands = None                    # a meta TEL has no data to check
     if dev.type == "cuda":
-        if v > max_vertices():
-            raise ValueError(
-                f"wave_peel: V = {v} vertices do not fit one block's shared "
-                f"memory on this card (the kernel takes V <= "
-                f"{max_vertices()})")
         _check_tel(tel, v)
         bands = tel_bands(tel, v)
 
@@ -277,6 +345,6 @@ def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
             lanes(k, w, dev), lanes(h, w, dev))
         return StepResult(out, packed, lo, hi, ne, iters.max())
 
-    step.backend = dev.type
+    step.backend = "fused"
     step.bands = bands
     return step

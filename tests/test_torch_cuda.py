@@ -675,14 +675,76 @@ def test_ladder_fault_on_card_raises_and_is_logged(cuda):
         assert _digest(a.result) == _digest(b.result)
 
 
-def test_ladder_over_smem_limit_raises_on_card(cuda, monkeypatch):
+@pytest.mark.parametrize("use_kernel", [None, True])
+def test_ladder_over_smem_limit_raises_on_card(cuda, monkeypatch,
+                                               use_kernel):
+    """Above the kernel's limit the ladder on the card starts on the
+    composite over segdeg and logs ``smem_limit``, as the JAX ladder logs
+    ``vmem_budget``; its answers are the CPU port's.  Only the kernel
+    asked for by name (``use_kernel=True``) raises."""
     from repro_torch.core import ResilienceConfig
 
     g = _serve_graph()
     monkeypatch.setattr(peel, "max_vertices", lambda: 8)
-    with pytest.raises(ValueError, match="V <= 8"):
-        make_wave_step_fn(g.device_tel(device=cuda), g.num_vertices,
-                          resilience=ResilienceConfig())
+    tel = g.device_tel(device=cuda)
+    if use_kernel:
+        with pytest.raises(ValueError, match="V <= 8"):
+            make_wave_step_fn(tel, g.num_vertices, use_kernel=True,
+                              resilience=ResilienceConfig())
+        return
+    step = make_wave_step_fn(tel, g.num_vertices,
+                             resilience=ResilienceConfig(tripwire_every=1))
+    assert step.backend == "composite" and len(step.rungs) == 1
+    assert [(e["rung"], e["reason"]) for e in step.events] == \
+        [("fused", "smem_limit")]
+    rng = np.random.default_rng(5)
+    w, v = 4, g.num_vertices
+    ts = rng.integers(0, 300, w).astype(np.int32)
+    args = (rng.random((w, v)) < 0.9, ts, ts + 60,
+            rng.integers(1, 4, w).astype(np.int32), np.ones(w, np.int32))
+    segdeg.banded_segsum.launches = peel.wave_peel.launches = 0
+    got = step(*(torch.from_numpy(a).to(cuda) for a in args))
+    assert segdeg.banded_segsum.launches > 0
+    assert peel.wave_peel.launches == 0
+    want = make_composite_step(g.device_tel(device="cpu"), v)(
+        *(torch.from_numpy(a) for a in args))
+    _assert_steps_equal(type(want)(*(x.cpu() for x in got)), want,
+                        "ladder above the limit")
+    assert len(step.events) == 1            # the tripwire held
+
+
+def test_wave_peel_limit_equals_its_mirror(cuda):
+    """The library's limit (shared memory queried on the card) equals the
+    package's mirror of the kernel's arithmetic, which the dry run and the
+    CPU tests use."""
+    assert peel.max_vertices() == peel.mirror_max_vertices()
+    assert peel.vertex_limit(cuda) == peel.max_vertices()
+
+
+@pytest.mark.parametrize("above", [False, True])
+def test_engine_and_service_at_the_smem_limit(cuda, above):
+    """V = max_vertices(): the default engine and service take wave_peel;
+    V + 1: the composite over segdeg.  Both answer as ``use_kernel=False``
+    and the CPU port do; ``use_kernel=True`` at V + 1 raises."""
+    from repro_torch.core import TCQService
+
+    v = peel.max_vertices() + int(above)
+    g = chip_smoke.boundary_graph(v)
+    reqs = chip_smoke.boundary_requests(g, n=4)
+    want = [_digest(r) for r in TCQEngine(g, device="cpu").query_batch(reqs)]
+    kernel, other = (segdeg.banded_segsum, peel.wave_peel) if above else \
+        (peel.wave_peel, segdeg.banded_segsum)
+    for make in (lambda: TCQEngine(g).query_batch(reqs),
+                 lambda: [tk.result for tk in _service_run(g, reqs)[1]]):
+        kernel.launches = other.launches = 0
+        got = make()
+        assert kernel.launches > 0 and other.launches == 0
+        assert [_digest(r) for r in got] == want
+    assert [_digest(r) for r in TCQEngine(g, use_kernel=False).query_batch(
+        reqs)] == want
+    if above:
+        with pytest.raises(ValueError, match="shared memory"):
+            TCQEngine(g, use_kernel=True).query_batch(reqs)
 
 
 def test_recover_on_card(cuda, tmp_path):
@@ -760,12 +822,43 @@ def test_gloo_mesh_without_a_device_computes_on_the_card(cuda, tmp_path):
         dist.destroy_process_group()
 
 
-def test_unit_mesh_kernel_that_declines_raises(nccl_unit_mesh, monkeypatch):
+@pytest.mark.parametrize("use_kernel", [None, True])
+def test_unit_mesh_kernel_that_declines_raises(nccl_unit_mesh, monkeypatch,
+                                               use_kernel):
+    """A unit mesh whose TEL the kernel cannot take runs the sharded
+    composite over segdeg and answers as the CPU port does; only the
+    kernel asked for by name raises."""
     g = GRAPHS["powerlaw"]()
     monkeypatch.setattr(peel, "max_vertices", lambda: 8)
+    eng = TCQEngine(g, mesh=nccl_unit_mesh, use_kernel=use_kernel)
+    if use_kernel:
+        with pytest.raises(ValueError, match="V <= 8"):
+            eng.query(3, *g.span, mode="wave")
+        return
+    peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    got = eng.query(3, *g.span, mode="wave")
+    assert peel.wave_peel.launches == 0
+    assert segdeg.banded_segsum.launches > 0
+    assert _digest(got) == _digest(
+        TCQEngine(g, device="cpu").query(3, *g.span, mode="wave"))
+
+
+def test_unit_mesh_above_the_smem_limit(nccl_unit_mesh):
+    """V = max_vertices() + 1 on the unit mesh over NCCL: the composite
+    over segdeg, the same cores as the CPU port; the kernel by name
+    raises."""
+    v = peel.max_vertices() + 1
+    g = chip_smoke.boundary_graph(v)
+    reqs = chip_smoke.boundary_requests(g, n=3)
     eng = TCQEngine(g, mesh=nccl_unit_mesh)
-    with pytest.raises(ValueError, match="V <= 8"):
-        eng.query(3, *g.span, mode="wave")
+    peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    got = eng.query_batch(reqs)
+    assert peel.wave_peel.launches == 0
+    assert segdeg.banded_segsum.launches > 0
+    want = TCQEngine(g, device="cpu").query_batch(reqs)
+    assert [_digest(r) for r in got] == [_digest(r) for r in want]
+    with pytest.raises(ValueError, match="shared memory"):
+        TCQEngine(g, mesh=nccl_unit_mesh, use_kernel=True).query_batch(reqs)
 
 
 def test_gloo_world_sharing_the_card(cuda, monkeypatch):
