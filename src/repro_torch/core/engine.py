@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.graph import DeviceTEL
 from repro_torch.core.results import CoreResult, QueryStats
 from repro_torch.core.scheduler import QueryState, RowCursor
@@ -173,6 +174,14 @@ class WavePipeline:
         claiming, and its in-flight lanes are freed at the next
         assemble/retire without result feedback.
         """
+        # the recorder's state is read once a pool: disarmed, a per-step
+        # site costs one test of a local
+        with trace.span("pool.run"):
+            self._run_pool(states, pool_stats, admit, trace.armed())
+
+    def _run_pool(self, states: List[QueryState], pool_stats: QueryStats,
+                  admit: Optional[Callable[[], List[QueryState]]],
+                  armed: bool) -> None:
         W = self.wave
         cuda = self.device.type == "cuda"
         claimable = deque(s for s in states if s.n > 0 and not s.cancelled)
@@ -279,7 +288,11 @@ class WavePipeline:
             res = slot.inflight
             slot.inflight = None
             if cuda:
+                if armed:
+                    sp = trace.begin("pool.wait")
                 slot.event.synchronize()
+                if armed:
+                    trace.end(sp)
                 packed, scalars, iters = (a.numpy().copy() for a in slot.host)
                 lo, hi, ne = scalars
             else:
@@ -292,6 +305,8 @@ class WavePipeline:
                                         + ne.nbytes + iters.nbytes)
             pool_stats.peel_iters += int(iters)
             lo_l, hi_l, ne_l = lo.tolist(), hi.tolist(), ne.tolist()
+            if armed:
+                sp = trace.begin("scheduler.retire")
             for li in range(W):
                 lane = slot.lanes[li]
                 if lane is None:
@@ -307,6 +322,8 @@ class WavePipeline:
                 if not keep:
                     slot.lanes[li] = None
                     slot.dirty.add(li)
+            if armed:
+                trace.end(sp)
 
         # prime every slot, then cycle the ring: retire + reassemble +
         # redispatch one slot while the other D-1 slots' steps execute on

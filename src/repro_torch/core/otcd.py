@@ -47,6 +47,7 @@ from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.corecache import CacheView, CoreCache
 from repro_torch.core.distributed import (ShardedDegradationLadder,
                                           ShardedWavePipeline, ShardPlan,
@@ -421,29 +422,33 @@ class TCQEngine:
             self._win_cache.move_to_end(key)
             return hit
         self._win_misses += 1
-        if self._edge_sharded:
-            e = int(np.count_nonzero((g.t >= Ts) & (g.t <= Te)))
-            host = (self._whole_window(g, ep, Ts, Te, torch.device("cpu"))[0]
-                    if self._resilience is not None else None)
-            out = WindowTEL(None, None, None, self._v_cap, e,
-                            self._sharded_step(
-                                lambda: self._shard_arrays(g, ep, Ts, Te, e),
-                                host))
-        else:
-            tel, v_cap, e = self._whole_window(g, ep, Ts, Te, self.device)
-            seg_pair = make_banded_segsum(int(tel.pair_u.shape[0]),
-                                          tel.pair_id)
-            seg_vert = make_banded_segsum(v_cap, tel.hp_src)
-            if self.mesh is not None:
-                step = self._sharded_step(
-                    lambda: self._shard_arrays(g, ep, Ts, Te, e), tel)
+        with trace.span("engine.window_tel"):
+            if self._edge_sharded:
+                e = int(np.count_nonzero((g.t >= Ts) & (g.t <= Te)))
+                host = (self._whole_window(g, ep, Ts, Te,
+                                           torch.device("cpu"))[0]
+                        if self._resilience is not None else None)
+                out = WindowTEL(None, None, None, self._v_cap, e,
+                                self._sharded_step(
+                                    lambda: self._shard_arrays(g, ep, Ts,
+                                                               Te, e),
+                                    host))
             else:
-                step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
-                                         seg_vert=seg_vert,
-                                         use_kernel=self._use_kernel,
-                                         donate=self._resilience is None,
-                                         resilience=self._resilience)
-            out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
+                tel, v_cap, e = self._whole_window(g, ep, Ts, Te,
+                                                   self.device)
+                seg_pair = make_banded_segsum(int(tel.pair_u.shape[0]),
+                                              tel.pair_id)
+                seg_vert = make_banded_segsum(v_cap, tel.hp_src)
+                if self.mesh is not None:
+                    step = self._sharded_step(
+                        lambda: self._shard_arrays(g, ep, Ts, Te, e), tel)
+                else:
+                    step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
+                                             seg_vert=seg_vert,
+                                             use_kernel=self._use_kernel,
+                                             donate=self._resilience is None,
+                                             resilience=self._resilience)
+                out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
         if len(self._win_cache) >= _WINDOW_CACHE_MAX:
             self._win_cache.popitem(last=False)     # evict least-recent
             self._win_evictions += 1
@@ -634,48 +639,49 @@ class TCQEngine:
         pipeline counters describe the shared batch.  With a
         ``degree_fn`` each request runs alone through :meth:`query`.
         """
-        t0 = time.perf_counter()
-        reqs = [dict(r) for r in requests]
-        if self._degree_fn is not None:
-            return [self.query(int(r["k"]), int(r["ts"]), int(r["te"]),
-                               h=int(r.get("h", 1)), algorithm=algorithm)
-                    for r in reqs]
-        prune = algorithm == "otcd"
-        outs: List[Optional[TCQResult]] = [None] * len(reqs)
-        states: List[Tuple[int, QueryState]] = []
-        for qi, r in enumerate(reqs):
-            uts = self.graph.unique_ts
-            uts = uts[(uts >= int(r["ts"])) & (uts <= int(r["te"]))]
-            uts = uts.astype(np.int64)
-            n = int(uts.size)
-            stats = QueryStats(n_timestamps=n,
-                               cells_total=n * (n + 1) // 2,
-                               batch_size=len(reqs))
-            if n == 0:
-                outs[qi] = TCQResult([], stats)
-                continue
-            states.append((qi, QueryState(
-                uts, int(r["k"]), int(r.get("h", 1)), prune, stats,
-                qid=qi,
-                cache=self._cache_view(int(r["k"]), int(r.get("h", 1))))))
-        if states:
-            lo = min(int(s.uts[0]) for _, s in states)
-            hi = max(int(s.uts[-1]) for _, s in states)
-            pipe, wt, wave = self.make_pool(lo, hi,
-                                            num_queries=len(states),
-                                            wave=wave, depth=depth)
-            pool_stats = QueryStats()
-            pipe.run_pool([s for _, s in states], pool_stats)
-            for qi, s in states:
-                st = s.stats
-                st.absorb_pool(pool_stats, window_edges=wt.window_edges,
-                               batch_size=len(reqs))
-                cores = s.decode_results(wt.num_vertices)
-                outs[qi] = TCQResult(list(cores.values()), st)
-        wall = time.perf_counter() - t0
-        for out in outs:
-            out.stats.wall_time_s = wall
-        return outs
+        with trace.span("engine.query_batch"):
+            t0 = time.perf_counter()
+            reqs = [dict(r) for r in requests]
+            if self._degree_fn is not None:
+                return [self.query(int(r["k"]), int(r["ts"]), int(r["te"]),
+                                   h=int(r.get("h", 1)), algorithm=algorithm)
+                        for r in reqs]
+            prune = algorithm == "otcd"
+            outs: List[Optional[TCQResult]] = [None] * len(reqs)
+            states: List[Tuple[int, QueryState]] = []
+            for qi, r in enumerate(reqs):
+                uts = self.graph.unique_ts
+                uts = uts[(uts >= int(r["ts"])) & (uts <= int(r["te"]))]
+                uts = uts.astype(np.int64)
+                n = int(uts.size)
+                stats = QueryStats(n_timestamps=n,
+                                   cells_total=n * (n + 1) // 2,
+                                   batch_size=len(reqs))
+                if n == 0:
+                    outs[qi] = TCQResult([], stats)
+                    continue
+                states.append((qi, QueryState(
+                    uts, int(r["k"]), int(r.get("h", 1)), prune, stats,
+                    qid=qi,
+                    cache=self._cache_view(int(r["k"]), int(r.get("h", 1))))))
+            if states:
+                lo = min(int(s.uts[0]) for _, s in states)
+                hi = max(int(s.uts[-1]) for _, s in states)
+                pipe, wt, wave = self.make_pool(lo, hi,
+                                                num_queries=len(states),
+                                                wave=wave, depth=depth)
+                pool_stats = QueryStats()
+                pipe.run_pool([s for _, s in states], pool_stats)
+                for qi, s in states:
+                    st = s.stats
+                    st.absorb_pool(pool_stats, window_edges=wt.window_edges,
+                                   batch_size=len(reqs))
+                    cores = s.decode_results(wt.num_vertices)
+                    outs[qi] = TCQResult(list(cores.values()), st)
+            wall = time.perf_counter() - t0
+            for out in outs:
+                out.stats.wall_time_s = wall
+            return outs
 
     # ----------------------------------------------------------- serial mode
     def _run_serial(self, uts, k, h, prune, stats,

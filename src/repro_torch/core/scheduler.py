@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core import trace
 from repro_torch.core.intervals import IntervalSet
 from repro_torch.core.results import CoreResult, QueryStats
 from repro_torch.core.wave import unpack_alive_u32
@@ -310,25 +311,26 @@ class QueryState:
         padded vertices are never core members, so a narrower row decodes
         to the same vertex set.
         """
-        results: Dict[Tuple[int, int], CoreResult] = {}
-        by_width: Dict[int, list] = defaultdict(list)
-        for key, (packed_row, _) in self.collected.items():
-            by_width[int(packed_row.size)].append(key)
-        for width, keys in by_width.items():
-            bits = unpack_alive_u32(
-                np.stack([self.collected[key][0] for key in keys]),
-                min(int(num_vertices), width * 32))
-            # one nonzero over the stacked group, split at row boundaries
-            # (vs a flatnonzero per core: this loop is the hot tail of
-            # every query's finalize)
-            rows_idx, cols = np.nonzero(bits)
-            verts = np.split(cols, np.searchsorted(
-                rows_idx, np.arange(1, len(keys))))
-            for key, v in zip(keys, verts):
-                results[key] = CoreResult(
-                    k=self.k, tti=key, vertices=v,
-                    n_edges=self.collected[key][1])
-        return results
+        with trace.span("scheduler.decode"):
+            results: Dict[Tuple[int, int], CoreResult] = {}
+            by_width: Dict[int, list] = defaultdict(list)
+            for key, (packed_row, _) in self.collected.items():
+                by_width[int(packed_row.size)].append(key)
+            for width, keys in by_width.items():
+                bits = unpack_alive_u32(
+                    np.stack([self.collected[key][0] for key in keys]),
+                    min(int(num_vertices), width * 32))
+                # one nonzero over the stacked group, split at row boundaries
+                # (vs a flatnonzero per core: this loop is the hot tail of
+                # every query's finalize)
+                rows_idx, cols = np.nonzero(bits)
+                verts = np.split(cols, np.searchsorted(
+                    rows_idx, np.arange(1, len(keys))))
+                for key, v in zip(keys, verts):
+                    results[key] = CoreResult(
+                        k=self.k, tti=key, vertices=v,
+                        n_edges=self.collected[key][1])
+            return results
 
 
 # ----------------------------------------------------------- lane autotuning

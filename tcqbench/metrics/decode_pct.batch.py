@@ -1,0 +1,18 @@
+"""Share of the window in which the scheduler decoded results: the
+program's ``scheduler.decode`` spans (``QueryState.decode_results``, the
+bulk unpack of every core found), summed over the trace's window.  None
+without the program's recorder, without such a span, or when the
+recorder dropped spans past its cap."""
+
+
+def read(rec):
+    try:
+        from repro_torch.core import trace
+    except ImportError:
+        return None
+    tr = rec.get("trace")
+    d = [s.end - s.start for s in trace.spans()
+         if s.name == "scheduler.decode" and s.end is not None]
+    if trace.dropped() or not d or not tr:
+        return None
+    return 100.0 * sum(d) / tr["window_s"]
