@@ -42,8 +42,8 @@ class QueryStats:
     shared, so the device-side counters (device_steps, host_syncs,
     bytes_synced, peel_iters, lane_refills, occupancy, wall_time_s)
     describe the whole batch and are reported identically on every
-    member query; schedule counters (cells_*, pruned_*, duplicates)
-    remain query-local.
+    member query; schedule counters (cells_*, pruned_*, duplicates) and
+    the result decoding's (decode_words*) remain query-local.
     """
 
     n_timestamps: int = 0
@@ -52,6 +52,8 @@ class QueryStats:
     cells_trivial: int = 0        # skipped host-side (provably empty)
     cells_cached: int = 0         # resolved from the TTI core cache
     duplicates: int = 0           # re-induced cores (0 for serial OTCD)
+    decode_words: int = 0         # packed words decode_results scanned
+    decode_words_set: int = 0     # of those, the nonzero ones expanded
     por_triggers: int = 0
     pou_triggers: int = 0
     pol_triggers: int = 0
