@@ -29,14 +29,30 @@ module owns that continuous loop:
   ``query_batch``'s single union TEL, whose per-iteration peel cost
   scales with the union's edge count — become separate tight pools.
 
+* **Formation that repeats** — a pool is formed from the backlog's
+  front alone: the first :data:`FORM_HORIZON` pending tickets in EDF
+  order.  Its members are the head's cluster among those of the head's
+  epoch, at most :data:`POOL_MEMBERS` of them, taken in EDF order.  So
+  once the backlog holds more than the front, which tickets share a pool
+  is decided by the backlog's order, not by which arrivals the last poll
+  happened to see.
+
 * **Mid-flight admission** — each pool runs through
   ``WavePipeline.run_pool(..., admit=...)``: whenever lanes free up, the
   service's admit hook (optionally after polling the caller for new
-  arrivals/ingestion) admits every pending ticket whose epoch matches
-  the pool and whose window fits inside the pool's TEL.  Lanes freed by
-  a draining query's tail are refilled by *newly arrived* queries with
-  no barrier in between; tickets that don't fit the live pool are served
-  by the next ``pump``.
+  arrivals/ingestion) admits pending tickets of the front, in EDF order,
+  whose epoch matches the pool and whose window fits inside the pool's
+  TEL, while the pool holds fewer than :data:`POOL_MEMBERS` unresolved
+  members.  Lanes freed by a draining query's tail are refilled by
+  queued queries with no barrier in between; tickets that don't fit the
+  live pool are served by the next ``pump``.
+
+* **Spans and counters** — ``service.pump`` is the root of one pump, so
+  a pool's ``pool.run``, ``engine.window_tel`` and ``scheduler.*`` spans
+  share its id; ``service.form`` and ``service.ingest`` split its host
+  time (``core/trace.py``).  :attr:`TCQService.stats` counts pools,
+  their members, the cells the finished tickets needed and those the
+  core cache answered, and the tickets the cache answered whole.
 
 The serving loop is deliberately synchronous; ``poll`` callbacks are the
 seam where a real frontend — or the open and closed loops in
@@ -58,6 +74,7 @@ seam where a real frontend — or the open and closed loops in
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import json
 import time
 from collections import Counter, deque
@@ -65,6 +82,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import trace
 from repro_torch.core import wal as walmod
 from repro_torch.core.graph import TemporalGraph
 from repro_torch.core.otcd import TCQEngine
@@ -99,6 +117,20 @@ def cluster_windows(windows: Sequence[Tuple[int, int]],
     return clusters
 
 
+#: Most unresolved tickets a pool holds, at formation and through
+#: mid-flight admission: the lanes of one slot at the sx-mathoverflow
+#: shape, where a 64-day window's pool autotunes to W = 8.  On an H100
+#: (PERF.md §6) 8 answered as many requests a second as 16 or 32 within
+#: the runs' spread, and its pools repeated run to run.
+POOL_MEMBERS = 8
+#: How many pending tickets, in EDF order, pool formation and mid-flight
+#: admission look at: the backlog's front, the only part whose content
+#: does not depend on the moment a poll ran once the backlog is deeper.
+#: One pool's worth, so that formation repeats as soon as the backlog
+#: holds more than a pool.
+FORM_HORIZON = POOL_MEMBERS
+
+
 # -------------------------------------------------------------------- ticket
 #: terminal ticket statuses — ``done`` (full result), ``timeout`` (deadline
 #: passed; partial result of whatever cells completed), ``cancelled``
@@ -116,8 +148,11 @@ class TCQTicket:
     that lands later.  ``uts`` is the snapshot's unique-timestamp slice
     for the window (the schedule's column space), fixed at submit time.
 
-    ``deadline`` is an *absolute* ``TCQService.now()`` instant (None =
-    best-effort); ``priority`` breaks deadline ties, lower first.  The
+    ``due_s`` is the *absolute* ``TCQService.now()`` instant the request
+    was due (an open loop's schedule time; None = its submission), from
+    which :attr:`latency_s` counts.  ``deadline`` is an *absolute*
+    ``TCQService.now()`` instant (None = best-effort); ``priority``
+    breaks deadline ties, lower first.  The
     pair drives both pool formation (EDF head-of-line) and in-pool lane
     claiming (:class:`~repro_torch.core.scheduler.QueryState`'s EDF key).
     Lifecycle: ``queued`` → ``running`` → one of
@@ -140,6 +175,7 @@ class TCQTicket:
     done_s: Optional[float] = None
     result: Optional[TCQResult] = None
     state: Optional[QueryState] = None
+    due_s: Optional[float] = None
 
     @property
     def done(self) -> bool:
@@ -157,10 +193,13 @@ class TCQTicket:
 
     @property
     def latency_s(self) -> Optional[float]:
-        """Submit-to-completion latency (the serving metric)."""
+        """Due-to-completion latency (the serving metric): from
+        ``due_s``, or from submission when the request named no due
+        time."""
         if self.done_s is None:
             return None
-        return self.done_s - self.submit_s
+        return self.done_s - (self.submit_s if self.due_s is None
+                              else self.due_s)
 
     @property
     def window(self) -> Tuple[int, int]:
@@ -240,7 +279,7 @@ class TCQService:
     ``pump(poll=...)`` serves one cluster-pool; ``poll`` is invoked
     between waves (whenever lanes free) so the caller can submit new
     requests or push edges *mid-flight* — compatible arrivals join the
-    running pool immediately.
+    running pool as its members resolve.
     """
 
     def __init__(self, graph: Optional[TemporalGraph] = None, *,
@@ -291,6 +330,7 @@ class TCQService:
         # trimming ``completed``/``pool_log`` themselves)
         self.retain_snapshots = bool(retain_snapshots)
         self._pending: Deque[TCQTicket] = deque()
+        self._deadlined = False     # a ticket was queued with a deadline
         self._fresh: List[TCQTicket] = []   # resolved-at-submit tickets
         # live pool members (pump removes them from _pending while lanes
         # run) — snapshot() must still see the unresolved ones, or a
@@ -299,6 +339,16 @@ class TCQService:
         self.completed: List[TCQTicket] = []
         self._next_id = 0
         self.pool_log: List[Dict] = []      # one record per pool run
+        # stats() counters: pools run and the members that held lanes in
+        # them; the schedule cells the finalized tickets needed and those
+        # the core cache answered; tickets the cache answered whole
+        self._counts = dict.fromkeys(
+            ("pools", "pool_members", "cells_cached", "cells_needed",
+             "resolved_at_admission"), 0)
+        # the backlog's EDF front and the (len, next id) it was read at:
+        # any submission or removal changes that pair
+        self._front: List[TCQTicket] = []
+        self._front_at: Optional[Tuple[int, int]] = None
         if self.wal is not None and not self._on_writer(
                 lambda log: bool(walmod.list_snapshots(log.dir))):
             # genesis checkpoint: a directory with no snapshot would make
@@ -347,6 +397,10 @@ class TCQService:
         must reproduce (edge/pair/vertex counts and the canonical-array
         fingerprint — the lineage check, since ``uid`` is process-local).
         """
+        with trace.span("service.ingest"):
+            return self._push_edges(u, v, t)
+
+    def _push_edges(self, u, v, t) -> int:
         g = self.engine.graph.add_edges(u, v, t)
         if g is self.engine.graph:          # empty/self-loop-only batch
             return self.engine.epoch
@@ -365,13 +419,14 @@ class TCQService:
         form: ``stream.subscribe(svc.ingest_graph)``).  Journaled as the
         graph's full canonical state (there is no batch to re-derive it
         from), fingerprint-checked on replay like :meth:`push_edges`."""
-        if self.wal is not None and not self._replaying:
-            self._journal("install", {
-                "graph_epoch": int(graph.epoch),
-                "num_vertices": int(graph.num_vertices),
-                "fingerprint": graph.fingerprint(),
-            }, graph.state_dict())
-        return self.engine.update_graph(graph)
+        with trace.span("service.ingest"):
+            if self.wal is not None and not self._replaying:
+                self._journal("install", {
+                    "graph_epoch": int(graph.epoch),
+                    "num_vertices": int(graph.num_vertices),
+                    "fingerprint": graph.fingerprint(),
+                }, graph.state_dict())
+            return self.engine.update_graph(graph)
 
     def connect(self, stream) -> None:
         """Subscribe to an ``EdgeStream`` so pushes land as new epochs."""
@@ -383,9 +438,12 @@ class TCQService:
         windows containing no snapshot timestamps).
 
         ``request`` is a mapping with ``k``, ``ts``, ``te`` and optional
-        ``h``, ``priority`` (lower runs first) and ``deadline_s``
+        ``h``, ``priority`` (lower runs first), ``deadline_s``
         (seconds from submission; the ticket is cancelled — with partial
-        results — once it passes) — the ``TCQRequestStream`` format.
+        results — once it passes) — the ``TCQRequestStream`` format —
+        and ``due_s``, the :meth:`now` instant the request was due, from
+        which the ticket's latency counts (not journaled: a recovered
+        ticket counts from its re-admission, as its ``submit_s`` does).
         """
         r = dict(request)
         now = self.now()
@@ -411,7 +469,9 @@ class TCQService:
                        te=int(r["te"]), epoch=self.engine.epoch, graph=g,
                        uts=uts, submit_s=now,
                        priority=int(r.get("priority", 0)),
-                       deadline=None if dl is None else now + float(dl))
+                       deadline=None if dl is None else now + float(dl),
+                       due_s=None if r.get("due_s") is None
+                       else float(r["due_s"]))
         self._next_id += 1
         n = int(uts.size)
         if n == 0:
@@ -423,6 +483,7 @@ class TCQService:
             self._fresh.append(tk)      # handed back by the next pump()
             return tk
         self._hist[(tk.k, tk.h, tk.ts, tk.te)] += 1
+        self._deadlined |= tk.deadline is not None
         self._pending.append(tk)
         return tk
 
@@ -469,6 +530,10 @@ class TCQService:
         """Time out every *queued* ticket past its deadline (running
         tickets are swept by the live pool's admit hook).  Returns the
         newly timed-out tickets."""
+        if not self._deadlined:
+            # no ticket was ever queued with a deadline: skip the scan,
+            # which the admit hook would otherwise make every device step
+            return []
         now = self.now() if now is None else now
         hit = [tk for tk in self._pending if tk.expired(now)]
         for tk in hit:
@@ -510,6 +575,7 @@ class TCQService:
         tk.status = "running"
         tk.admit_s = now
         self._finalize(tk, self.engine.num_vertices, self.now())
+        self._counts["resolved_at_admission"] += 1
         return True
 
     def _retire(self, tk: TCQTicket) -> None:
@@ -523,6 +589,8 @@ class TCQService:
                   done_s: float) -> None:
         cores = tk.state.decode_results(num_vertices)
         st = tk.state.stats
+        self._counts["cells_cached"] += st.cells_cached
+        self._counts["cells_needed"] += st.cells_cached + st.cells_evaluated
         tk.result = TCQResult(list(cores.values()), st)
         tk.done_s = done_s
         st.wall_time_s = done_s - tk.submit_s
@@ -538,14 +606,38 @@ class TCQService:
         formation and again every time lanes free up, so the caller can
         inject arrivals and ingestion mid-flight; arrivals that match
         the live pool's epoch and fit its union window are admitted into
-        it, the rest wait for the next pump.  Tickets resolve *as their
-        own schedule drains* — a query admitted early is not held open
-        by queries admitted after it, so per-ticket latency is honest
-        even when sustained arrivals keep one pool alive.  Returns []
-        when nothing resolved and nothing is pending.
+        it as its members resolve, the rest wait for the next pump.
+        Tickets resolve *as their own schedule drains* — a query admitted
+        early is not held open by queries admitted after it, so
+        per-ticket latency is honest even when sustained arrivals keep
+        one pool alive.  Returns [] when nothing resolved and nothing is
+        pending.
         """
-        if poll is not None:
-            poll(self)
+        with trace.span("service.pump"):
+            return self._pump(poll)
+
+    def _edf_front(self) -> List[TCQTicket]:
+        """The first :data:`FORM_HORIZON` pending tickets in EDF order,
+        read anew only after a submission or a removal."""
+        at = (len(self._pending), self._next_id)
+        if at != self._front_at:
+            self._front = heapq.nsmallest(FORM_HORIZON, self._pending,
+                                          key=lambda t: t.edf_key)
+            self._front_at = at
+        return self._front
+
+    def _form(self) -> Optional[List[TCQTicket]]:
+        """Expire, sync the journal, resolve what the core cache answers
+        whole, and take the next pool's members off the backlog (None
+        when nothing is pending).
+
+        EDF head-of-line: the most urgent (deadline, priority) ticket
+        picks the pool; with no deadlines/priorities the key degenerates
+        to arrival order — older snapshots drain first so pinned epochs
+        (and their cached TELs) retire quickly.  The members are the
+        head's cluster (:func:`cluster_windows`) among the front's
+        tickets of its epoch, the first :data:`POOL_MEMBERS` of it in EDF
+        order, listed in cluster order."""
         self.expire()
         if self.wal is not None:
             # batch fsync barrier: everything journaled since the last
@@ -562,30 +654,35 @@ class TCQService:
                     self._pending.remove(tk)
                     self._fresh.append(tk)
         if not self._pending:
-            fresh, self._fresh = self._fresh, []
-            return fresh
-        # EDF head-of-line: the most urgent (deadline, priority) ticket
-        # picks the pool; with no deadlines/priorities the key degenerates
-        # to arrival order, i.e. the old FIFO head — older snapshots drain
-        # first so pinned epochs (and their cached TELs) retire quickly
-        head = min(self._pending, key=lambda t: t.edf_key)
-        epoch = head.epoch
-        cand = [tk for tk in self._pending if tk.epoch == epoch]
-        clusters = cluster_windows([tk.window for tk in cand],
-                                   self.cluster_gap)
-        members = next(
-            [cand[i] for i in c] for c in clusters
-            if any(cand[i] is head for i in c))
+            return None
+        front = self._edf_front()
+        cand = [tk for tk in front if tk.epoch == front[0].epoch]
+        cluster = next(c for c in cluster_windows(
+            [tk.window for tk in cand], self.cluster_gap) if 0 in c)
+        keep = set(sorted(cluster)[:POOL_MEMBERS])
+        members = [cand[i] for i in cluster if i in keep]
         for tk in members:
             self._pending.remove(tk)
+        return members
+
+    def _pump(self, poll) -> List[TCQTicket]:
+        if poll is not None:
+            poll(self)
+        with trace.span("service.form"):
+            members = self._form()
+        if members is None:
+            fresh, self._fresh = self._fresh, []
+            return fresh
         self._inflight = members    # same list object: grows with admits
+        epoch, graph = members[0].epoch, members[0].graph
         pool_lo = min(tk.window[0] for tk in members)
         pool_hi = max(tk.window[1] for tk in members)
         pipe, wt, wave = self.engine.make_pool(
-            pool_lo, pool_hi, graph=head.graph, epoch=epoch,
+            pool_lo, pool_hi, graph=graph, epoch=epoch,
             num_queries=len(members), wave=self.wave, depth=self.depth)
         states = [self._make_state(tk) for tk in members]
         pool_stats = QueryStats()
+        resolved_here = set()       # ids the cache answered at admission
         t0 = self.now()
 
         def admit() -> List[QueryState]:
@@ -593,6 +690,7 @@ class TCQService:
                 poll(self)
             now = self.now()
             self.expire(now)
+            live = 0
             for tk in members:
                 # deadline sweep over *running* members: flag the state so
                 # run_pool reclaims its lanes at this very wave boundary
@@ -604,20 +702,29 @@ class TCQService:
                 # their latency must not absorb later admissions' work
                 if tk.done_s is None and tk.state.done:
                     self._finalize(tk, wt.num_vertices, now)
+                live += tk.done_s is None
             newly = []
-            for tk in list(self._pending):
-                if (tk.epoch == epoch and tk.window[0] >= pool_lo
-                        and tk.window[1] <= pool_hi):
-                    self._pending.remove(tk)
-                    members.append(tk)
-                    st = self._make_state(tk)
-                    # a mid-flight arrival fully served by the cache
-                    # resolves on the spot instead of taking lanes
-                    st.resolve_cached()
-                    if st.done:
-                        self._finalize(tk, wt.num_vertices, now)
-                        continue
-                    newly.append(st)
+            if live >= POOL_MEMBERS:
+                return newly
+            for tk in list(self._edf_front()):
+                if (tk.epoch != epoch or tk.window[0] < pool_lo
+                        or tk.window[1] > pool_hi):
+                    continue
+                self._pending.remove(tk)
+                members.append(tk)
+                st = self._make_state(tk)
+                # a mid-flight arrival fully served by the cache
+                # resolves on the spot instead of taking lanes
+                st.resolve_cached()
+                if st.done:
+                    self._finalize(tk, wt.num_vertices, now)
+                    self._counts["resolved_at_admission"] += 1
+                    resolved_here.add(tk.id)
+                    continue
+                newly.append(st)
+                live += 1
+                if live >= POOL_MEMBERS:
+                    break
             return newly
 
         pipe.run_pool(states, pool_stats, admit=admit)
@@ -631,12 +738,17 @@ class TCQService:
                                         window_edges=wt.window_edges,
                                         batch_size=len(members))
         self._inflight = []
+        self._counts["pools"] += 1
+        # the members that held lanes: not those the cache answered whole
+        held = [tk.id for tk in members if tk.id not in resolved_here]
+        self._counts["pool_members"] += len(held)
         # drop window TELs / pair tables of epochs no ticket pins anymore
         self.engine.retire_epochs({t.epoch for t in self._pending})
         fresh, self._fresh = self._fresh, []
         self.pool_log.append({
             "epoch": epoch, "window": (pool_lo, pool_hi),
             "members": len(members), "wave": wave,
+            "ids": held,
             "admitted_midflight": pool_stats.admissions,
             "window_edges": wt.window_edges,
             "device_steps": pool_stats.device_steps,
@@ -714,6 +826,7 @@ class TCQService:
         out["pending"] = len(self._pending)
         out["completed"] = len(self.completed)
         out["prewarmed"] = self._prewarmed
+        out.update(self._counts)
         if self.wal is not None:
             out["wal"] = self.wal.stats()
         return out
@@ -792,6 +905,7 @@ class TCQService:
             uts = g.unique_ts
             uts = uts[(uts >= int(rec["ts"])) & (uts <= int(rec["te"]))]
             rem = rec.get("deadline_rem_s")
+            svc._deadlined |= rem is not None
             svc._pending.append(TCQTicket(
                 id=int(rec["id"]), k=int(rec["k"]), h=int(rec["h"]),
                 ts=int(rec["ts"]), te=int(rec["te"]), epoch=ep, graph=g,

@@ -27,6 +27,16 @@ The spans of the port (parent in brackets):
 * ``scheduler.retire`` — the per-lane feedback of one retired step
   (``pool.run``).
 * ``scheduler.decode`` — ``QueryState.decode_results`` (the caller's).
+* ``service.pump`` — ``TCQService.pump``, the whole call (a root): the
+  caller's poll, formation, the pool's ``engine.window_tel`` and
+  ``pool.run``, and the finished tickets' ``scheduler.decode``.
+* ``service.form`` — a pump's expiry, journal sync, admission-time cache
+  probe, clustering and member selection, up to ``make_pool``
+  (``service.pump``).
+* ``service.ingest`` — ``TCQService.push_edges`` or ``ingest_graph``:
+  the host merge-append, the journal record, the engine's new epoch and
+  the core cache's advance (the caller's: ``service.pump`` when a poll
+  pushes, else a root).
 
 Sites on a per-step path read :func:`armed` once per pool into a local
 and call :func:`begin` / :func:`end` behind it; other sites use

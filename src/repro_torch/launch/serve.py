@@ -15,7 +15,8 @@ run are admitted mid-flight when their window fits, otherwise they queue
 for the next pool.  Edge ingestion batches land on their own schedule
 (between arrivals), each producing a new TEL epoch; queries always
 answer over the snapshot current at their admission.  Reported: p50 /
-p95 / p99 submit-to-completion latency, sustained qps, mean pool
+p95 / p99 latency from each request's scheduled arrival to its
+completion, sustained qps, mean pool
 occupancy, and the epoch count ingested while serving.
 
 ``--device`` defaults to ``cuda`` (the service raises without a card);
@@ -156,17 +157,27 @@ def serve_closed_loop(graph, requests, *, concurrency: int = 8,
                       deadline_s=deadline_s)
     queue = list(requests)
     tickets = []
-    state = {"i": 0}
+    state = {"i": 0, "t0": svc.now()}
 
     def outstanding() -> int:
         return sum(1 for tk in tickets if not tk.done)
 
+    def due() -> float:
+        """When the slot the next request takes freed: the loop's start
+        for the first ``concurrency`` tickets, else the completion that
+        left fewer than ``concurrency`` outstanding."""
+        n = len(tickets) - concurrency
+        if n < 0:
+            return state["t0"]
+        return sorted(tk.done_s for tk in tickets if tk.done)[n]
+
     def poll(s):
         # at most one offer per poll tick (pool formation / lanes
         # freeing): the closed loop reacts to service progress instead
-        # of dumping its whole queue into the shedder in one burst
+        # of dumping its whole queue into the shedder in one burst; the
+        # request's latency counts from when its slot freed
         if state["i"] < len(queue) and outstanding() < concurrency:
-            tk = bp.offer(queue[state["i"]])
+            tk = bp.offer(dict(queue[state["i"]], due_s=due()))
             state["i"] += 1
             if tk is not None:
                 tickets.append(tk)
@@ -238,12 +249,15 @@ def serve_stream(graph, requests, *, qps: float, ingest=None,
         svc.pool_log.clear()
     queue = sorted(requests, key=lambda r: r["arrive_s"])
     ingest = iter(ingest) if ingest is not None else None
-    state = {"i": 0, "epochs": 0, "t0": time.perf_counter()}
+    state = {"i": 0, "epochs": 0, "t0": svc.now()}
 
     def poll(s):
-        now = time.perf_counter() - state["t0"]
+        now = s.now() - state["t0"]
         while state["i"] < len(queue) and queue[state["i"]]["arrive_s"] <= now:
-            s.submit(queue[state["i"]])
+            # latency counts from the schedule's arrival, not from this
+            # poll, which may come a whole pool later
+            r = queue[state["i"]]
+            s.submit(dict(r, due_s=state["t0"] + r["arrive_s"]))
             state["i"] += 1
         if ingest is not None and state["epochs"] < state["i"]:
             # one ingestion batch per served arrival tranche: edges land
@@ -264,11 +278,10 @@ def serve_stream(graph, requests, *, qps: float, ingest=None,
             # hottest windows, then sleep to the arrival time
             if prewarm > 0:
                 svc.prewarm(prewarm)
-            nxt = queue[state["i"]]["arrive_s"] - (
-                time.perf_counter() - state["t0"])
+            nxt = queue[state["i"]]["arrive_s"] - (svc.now() - state["t0"])
             if nxt > 0:
                 time.sleep(min(nxt, 0.05))
-    wall = time.perf_counter() - state["t0"]
+    wall = svc.now() - state["t0"]
     return svc, served, wall
 
 
@@ -310,7 +323,8 @@ def serve_distributed(graph, requests, *, mesh, combine="auto",
         for c in range(n):
             q, i = lanes[c], state["i"][c]
             while i < len(q) and q[i]["arrive_s"] <= now:
-                tk = s.submit(q[i])
+                tk = s.submit(dict(q[i],
+                                   due_s=state["t0"] + q[i]["arrive_s"]))
                 owner[tk.id] = c
                 i += 1
             state["i"][c] = i

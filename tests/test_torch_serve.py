@@ -91,6 +91,14 @@ def test_serve_closed_loop_matches_reference(cache):
         [{k: r[k] for k in ("k", "ts", "te")} for r in reqs])
     for tk, w in zip(sorted(tickets, key=lambda t: t.id), want):
         assert tk.status == "done" and digest(tk.result) == digest(w)
+    # latency counts from when the ticket's slot freed: the loop's start
+    # for the first `concurrency`, else the completion that freed it
+    done = sorted(tk.done_s for tk in tickets)
+    for i, tk in enumerate(sorted(tickets, key=lambda t: t.id)):
+        assert tk.due_s <= tk.submit_s
+        assert tk.latency_s == tk.done_s - tk.due_s
+        if i >= 3:
+            assert tk.due_s in done[:i - 2]
     cc = rep["cache"].get("core_cache")
     assert (cc is not None) == cache
     if cache:
@@ -111,6 +119,15 @@ def test_serve_stream_ingest_wal_and_recover(tmp_path):
         fsync="batch", device="cpu")
     assert wall > 0 and len(served) == len(reqs)
     assert svc.epoch == len(batches)
+    # latency counts from each request's scheduled arrival: the dues lie
+    # as far apart as the schedule's arrivals, and before submission
+    by_id = sorted(served, key=lambda t: t.id)
+    arrive = sorted(r["arrive_s"] for r in reqs)
+    for tk, a in zip(by_id, arrive):
+        assert tk.due_s <= tk.submit_s
+        assert tk.latency_s == tk.done_s - tk.due_s
+        assert tk.due_s - by_id[0].due_s == pytest.approx(a - arrive[0],
+                                                          abs=1e-9)
     snaps = [g]
     for u, v, t in batches:
         snaps.append(snaps[-1].add_edges(u, v, t))

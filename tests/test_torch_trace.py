@@ -23,7 +23,8 @@ from repro_torch.core import TCQEngine, TCQService, trace  # noqa: E402
 from repro_torch.graphs import powerlaw_temporal  # noqa: E402
 
 NAMES = {"engine.query_batch", "engine.window_tel", "pool.run", "pool.wait",
-         "scheduler.retire", "scheduler.decode"}
+         "scheduler.retire", "scheduler.decode", "service.pump",
+         "service.form", "service.ingest"}
 COUNTERS = ("cells_evaluated", "device_steps", "duplicates", "peel_iters",
             "host_syncs", "bytes_synced", "lane_refills", "por_triggers",
             "pou_triggers", "pol_triggers")
@@ -124,6 +125,7 @@ def test_answers_and_counters_are_untouched_when_armed():
 
 
 def test_service_pool_is_a_root_of_its_own():
+    """Each pool's spans share a root of their own: the pump's."""
     svc = TCQService(_graph(), device="cpu")
     for r in REQS:
         svc.submit(r)
@@ -131,7 +133,7 @@ def test_service_pool_is_a_root_of_its_own():
     sp = trace.spans()
     assert {s.name for s in sp} <= NAMES
     runs = _by_name(sp, "pool.run")
-    assert runs and all(s.parent == -1 for s in runs)
+    assert runs and all(sp[s.parent].name == "service.pump" for s in runs)
     assert len({s.root for s in runs}) == len(runs)
     for s in _by_name(sp, "scheduler.retire"):
         assert sp[s.parent].name == "pool.run"
