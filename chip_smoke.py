@@ -17,10 +17,10 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    closures equal to the fused step; a small graph's cores equal to the
    brute-force oracle; then the capacity rule at wave_peel's limit: on a
    graph of V = ``max_vertices()`` vertices (equal to the package's
-   mirror of the kernel's arithmetic) the default engine launches
-   wave_peel and no segdeg, at V + 1 segdeg and no wave_peel, both equal
-   to ``use_kernel=False`` and to the CPU port, and ``use_kernel=True``
-   at V + 1 raises;
+   mirror of the kernel's arithmetic) the default engine and
+   ``use_kernel=True`` launch wave_peel alone, at V + 1 its global-memory
+   tier (``wave_peel_global``) alone, all equal to ``use_kernel=False``
+   (the composite over segdeg) and to the CPU port;
 3. drives the main path at the published shape of SNAP sx-mathoverflow
    (24,818 vertices, 506,550 temporal edges, 2,350 days): one
    ``query_batch`` of 8 queries (cold, then warm), each query again
@@ -181,16 +181,20 @@ card.  It builds the CUDA kernels from ``src/repro_torch/kernels`` (into
    records) the main path at the repo's tcq-youtube shape: 3,276,800
    vertices, 9,437,184 edges after self-loops, 8.4 M pairs, a span of
    2^20 (``youtube_graph``), above wave_peel's shared memory, so every
-   window step is the composite over segdeg.  ``YOUTUBE_REQUESTS`` (8
+   window step is its global-memory tier.  ``YOUTUBE_REQUESTS`` (8
    windows of 1/36 to 1/144 of the span, k >= 10, 1-200 cores each;
    ``python3 chip_smoke.py --pick-youtube`` picks them) through
-   ``query_batch`` cold and warm, looped wave and serial queries and
-   ``TCQService(g)``: every path's cores equal, cold and warm counters
-   equal, wave_peel never launched, segdeg at least twice a peel
-   iteration on the wave paths and never on the serial one.  It prints
-   W, steps, iterations, occupancy, each path's wall time, the card's
-   busy share, where one wave query's host time goes, peak memory and
-   segdeg's time at its two shapes against their bounds;
+   ``query_batch`` cold and warm, looped wave and serial queries,
+   ``TCQService(g)`` and the composite over segdeg
+   (``use_kernel=False``): every path's cores and schedule counters
+   equal, wave_peel never launched, ``wave_peel_global`` once a device
+   step on the wave paths (its launches printed by path) and never on the
+   serial or composite ones, segdeg only on the composite, at least twice
+   a peel iteration.  It prints W, steps, iterations, occupancy, each
+   path's wall time, the card's busy share, where one wave query's host
+   time goes, peak memory, segdeg's time at its two shapes against their
+   bounds, and the global tier's step against its bound, the plain step
+   and the composite;
 
 and prints every kernel's registers, shared memory and spills (``ptxas
 -v``) after the build, every kernel's numbers as one JSON line, then the
@@ -553,11 +557,11 @@ def boundary_requests(g, n: int = 4, seed: int = 3) -> list:
 
 def phase_boundary(dev) -> dict:
     """The capacity rule at wave_peel's shared-memory limit: a default
-    engine on a graph of V = ``max_vertices()`` vertices takes the fused
-    kernel, one of V + 1 the composite over segdeg; both answer as
-    ``use_kernel=False`` and the CPU port do, and ``use_kernel=True`` at
-    V + 1 raises.  The library's limit equals the package's mirror of the
-    kernel's arithmetic."""
+    engine on a graph of V = ``max_vertices()`` vertices takes the
+    shared-memory kernel, one of V + 1 the global-memory tier, and so does
+    ``use_kernel=True`` there; all answer as ``use_kernel=False`` (the
+    composite over segdeg) and the CPU port do.  The library's limit
+    equals the package's mirror of the kernel's arithmetic."""
     import torch
     from repro_torch.core import TCQEngine
     from repro_torch.kernels.wave_peel import ops as peel
@@ -566,40 +570,36 @@ def phase_boundary(dev) -> dict:
     check(limit == peel.mirror_max_vertices(),
           f"max_vertices() {limit} != the mirror "
           f"{peel.mirror_max_vertices()}")
+    tcq = ("wave_peel", "wave_peel_global", "segdeg")
     by_path = {}
-    for v, kernel, other in ((limit, "wave_peel", "segdeg"),
-                             (limit + 1, "segdeg", "wave_peel")):
+    for v, kernel, backend in ((limit, "wave_peel", "fused"),
+                               (limit + 1, "wave_peel_global",
+                                "fused_global")):
         g = boundary_graph(v)
         reqs = boundary_requests(g)
-        eng = TCQEngine(g)
-        got, wall, n = run_path(lambda: eng.query_batch(reqs))
-        backend = step_backend(eng)
-        path = f"boundary_v{v}"
-        by_path[path] = n
-        check(n[kernel] > 0 and n[other] == 0,
-              f"V={v}: launches {n}, want {kernel} and no {other}")
-        check(backend == ("fused" if kernel == "wave_peel" else
-                          "composite"), f"V={v}: a {backend} step")
-        for ref, what in ((TCQEngine(g, use_kernel=False), "use_kernel="
-                           "False"), (TCQEngine(g, device="cpu"), "the CPU")):
-            want = ref.query_batch(reqs)
-            for i, (a, b) in enumerate(zip(got, want)):
-                check(digest(a) == digest(b),
-                      f"V={v}, request {i}: differs from {what}")
-        log(f"boundary V={v}: {backend} step, {wall:.3f}s, "
-            f"{sum(len(r) for r in got)} cores of {len(reqs)} requests "
-            f"equal to use_kernel=False and the CPU port; launches "
-            f"{json.dumps(n)}")
-        del eng
-    try:
-        TCQEngine(g, use_kernel=True).query_batch(reqs)
-    except ValueError as e:
-        check("shared memory" in str(e), f"use_kernel=True raised {e}")
-    else:
-        raise AssertionError(f"use_kernel=True at V={limit + 1} answered")
+        for name, eng in (("", TCQEngine(g)),
+                          ("_use_kernel", TCQEngine(g, use_kernel=True))):
+            got, wall, n = run_path(lambda: eng.query_batch(reqs))
+            got_backend = step_backend(eng)
+            path = f"boundary_v{v}{name}"
+            by_path[path] = n
+            check(n[kernel] > 0 and sum(n[k] for k in tcq) == n[kernel],
+                  f"{path}: launches {n}, want {kernel} alone")
+            check(got_backend == backend, f"{path}: a {got_backend} step")
+            for ref, what in ((TCQEngine(g, use_kernel=False),
+                               "use_kernel=False"),
+                              (TCQEngine(g, device="cpu"), "the CPU")):
+                want = ref.query_batch(reqs)
+                for i, (a, b) in enumerate(zip(got, want)):
+                    check(digest(a) == digest(b),
+                          f"{path}, request {i}: differs from {what}")
+            log(f"boundary V={v}{name.replace('_', ' ')}: {got_backend} "
+                f"step, {wall:.3f}s, {sum(len(r) for r in got)} cores of "
+                f"{len(reqs)} requests equal to use_kernel=False and the "
+                f"CPU port; launches {json.dumps(n)}")
+            del eng
     torch.cuda.synchronize()
-    log(f"boundary: max_vertices() {limit} = the mirror; use_kernel=True "
-        f"at V={limit + 1} raises")
+    log(f"boundary: max_vertices() {limit} = the mirror")
     return {"limit": limit, "by_path": by_path}
 
 
@@ -608,10 +608,15 @@ def wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.segdeg.ops import banded_segsum
     from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_bwd
-    from repro_torch.kernels.wave_peel.ops import wave_peel
+    from repro_torch.kernels.wave_peel.ops import wave_peel, wave_peel_global
 
-    return {"wave_peel": wave_peel, "segdeg": banded_segsum,
-            "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd}
+    return {"wave_peel": wave_peel, "wave_peel_global": wave_peel_global,
+            "segdeg": banded_segsum, "ssm_scan": ssm_scan,
+            "ssm_scan_bwd": ssm_scan_bwd}
+
+
+# the TCQ kernels' counts on a path that runs none of them
+NO_TCQ_LAUNCHES = {"wave_peel": 0, "wave_peel_global": 0, "segdeg": 0}
 
 
 def run_path(fn):
@@ -1091,7 +1096,7 @@ def phase_lm(dev) -> dict:
     for path, want in (("jamba_prefill", n_mamba),
                        ("jamba_decode", n_mamba * n_dec)):
         got = by_path[path]
-        check(got == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want,
+        check(got == {**NO_TCQ_LAUNCHES, "ssm_scan": want,
                       "ssm_scan_bwd": 0},
               f"{path}: launches {got}, want ssm_scan {want} and no other")
     log(f"jamba prefill: {b} x {s} tokens into a {s_max}-token cache in "
@@ -1839,7 +1844,7 @@ def phase_families(dev, runs=FAMILY_RUNS, n_dec: int = 32) -> dict:
                                n_mamba * n_dec)):
             by_path[path] = n
             if on_card:
-                check(n == {"wave_peel": 0, "segdeg": 0, "ssm_scan": want,
+                check(n == {**NO_TCQ_LAUNCHES, "ssm_scan": want,
                             "ssm_scan_bwd": 0},
                       f"{path}: launches {n}, want ssm_scan {want} and no "
                       "other")
@@ -2056,7 +2061,7 @@ def phase_train_smoke(dev) -> dict:
             runs.append(out)
         (lc, gc, sc, opt, pc), (lg, gg, sg, _, pg) = runs
         n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
-        want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 4 * n_mamba,
+        want = {**NO_TCQ_LAUNCHES, "ssm_scan": 4 * n_mamba,
                 "ssm_scan_bwd": 2 * n_mamba}
         check(dev.type != "cuda" or n == want,
               f"{arch} smoke training: launches {n}, want {want}")
@@ -2128,7 +2133,7 @@ def phase_train(dev) -> dict:
             check(bool((g != 0).any()), f"jamba: {name} gradient is zero")
     check(seen == 3 * n_mamba, f"jamba: {seen} Mamba gradients checked")
     del grads
-    want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_mamba,
+    want = {**NO_TCQ_LAUNCHES, "ssm_scan": 2 * n_mamba,
             "ssm_scan_bwd": n_mamba}
     on_card = dev.type == "cuda"
     check(not on_card or n_grad == want,
@@ -2852,7 +2857,7 @@ def phase_sharded_lm(dev, want: dict) -> dict:
                                      ("decode", p["launches_decode"],
                                       n_m * c[7])):
                     if on_card:
-                        check(got == {"wave_peel": 0, "segdeg": 0,
+                        check(got == {**NO_TCQ_LAUNCHES,
                                       "ssm_scan": n, "ssm_scan_bwd": 0},
                               f"{sub} {name} {path}: rank {p['rank']} "
                               f"launches {got}, want ssm_scan {n}")
@@ -3010,7 +3015,7 @@ def phase_train_unit_mesh(dev) -> dict:
     on_card = dev.type == "cuda"
     cfg = get_config(JAMBA).scaled(**JAMBA8)
     n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
-    want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_mamba,
+    want = {**NO_TCQ_LAUNCHES, "ssm_scan": 2 * n_mamba,
             "ssm_scan_bwd": n_mamba}
     if on_card:
         torch.cuda.empty_cache()
@@ -3173,7 +3178,7 @@ def sharded_vs_unsharded(cfg, batch: dict, mesh, what: str,
     coords = mesh_coords(mesh)
     specs = dict(_named(param_pspecs(cfg, mesh)))
     n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_specs())
-    want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_mamba,
+    want = {**NO_TCQ_LAUNCHES, "ssm_scan": 2 * n_mamba,
             "ssm_scan_bwd": n_mamba}
     ref = ref_n = None
     for r in range(mesh.size):
@@ -3326,7 +3331,7 @@ def mesh_smoke_rank(device: str, root: str) -> dict:
                           ("to the failure", n_failed, n_logged),
                           ("resized", n_resumed,
                            len(faulty.metrics) - n_logged)):
-        want = {"wave_peel": 0, "segdeg": 0,
+        want = {**NO_TCQ_LAUNCHES,
                 "ssm_scan": 2 * n_mamba * steps,
                 "ssm_scan_bwd": n_mamba * steps}
         check(dev.type != "cuda" or n == want,
@@ -3403,7 +3408,7 @@ def phase_mesh_train(dev, early: dict) -> dict:
     shard = outs[0]["shard"]
     for o in outs:
         n_m = o["n_mamba"]
-        want = {"wave_peel": 0, "segdeg": 0, "ssm_scan": 2 * n_m,
+        want = {**NO_TCQ_LAUNCHES, "ssm_scan": 2 * n_m,
                 "ssm_scan_bwd": n_m}
         check(not on_card or (o["fwd_shapes"] == [shard]
                               and o["bwd_shapes"] == [shard]),
@@ -4021,16 +4026,21 @@ def pick_youtube() -> int:
 def phase_youtube(dev) -> dict:
     """The main path at the repo's tcq-youtube shape (3,276,800 vertices,
     9,437,184 edges, a span of 2^20): above wave_peel's shared memory, so
-    every window step is the composite over segdeg.  ``query_batch`` cold
-    and warm, looped wave and serial queries and ``TCQService`` answer
+    every window step is its global-memory tier.  ``query_batch`` cold
+    and warm, looped wave and serial queries, ``TCQService`` and the
+    composite over segdeg (``use_kernel=False``) answer
     ``YOUTUBE_REQUESTS``, each path with the launch counters zeroed
-    before it; all equal."""
+    before it; all equal.  Then the global tier's step is timed against
+    its bound and the plain step (PERF.md's kernel table, row 1b)."""
     import torch
     from repro_torch.core import TCQEngine, TCQService
     from repro_torch.core.scheduler import autotune_wave
+    from repro_torch.core.wave import make_composite_step
     from repro_torch.kernels.segdeg.ops import (banded_segsum,
                                                 segment_offsets)
-    from repro_torch.kernels.wave_peel.ops import max_vertices
+    from repro_torch.kernels.wave_peel.ops import (canonical_step_cost,
+                                                   max_vertices, tel_bands,
+                                                   wave_peel_global)
 
     t_phase = time.perf_counter()
     on_card = dev.type == "cuda"     # (a CPU rehearsal counts no launch)
@@ -4065,10 +4075,14 @@ def phase_youtube(dev) -> dict:
         return svc, tks
 
     (svc, tks), svc_s, n_svc = run_path(serve)
+    comp_eng = TCQEngine(g, use_kernel=False)
+    comps, comp_s, n_comp = run_path(lambda: comp_eng.query_batch(reqs))
     by_path = {"youtube_batch_cold": n_cold, "youtube_batch_warm": n_warm,
                "youtube_wave": n_wave, "youtube_serial": n_serial,
-               "youtube_service": n_svc}
+               "youtube_service": n_svc, "youtube_composite_batch": n_comp}
     log(f"16 launches by path: {json.dumps(by_path)}")
+    log("16 wave_peel_global launches by path: " + json.dumps(
+        {path: n["wave_peel_global"] for path, n in by_path.items()}))
 
     for i, (k, _, _, cores) in enumerate(YOUTUBE_REQUESTS[:YOUTUBE_N]):
         want = digest(batch[i])
@@ -4077,33 +4091,46 @@ def phase_youtube(dev) -> dict:
               f"{cores}")
         for what, res in (("warm batch", batch2[i]), ("wave", waves[i]),
                           ("serial", serials[i]),
-                          ("service", tks[i].result)):
+                          ("service", tks[i].result),
+                          ("composite batch", comps[i])):
             check(res is not None and digest(res) == want,
                   f"16 query {i}: {what} differs from the cold batch")
-    check(counters(batch) == counters(batch2),
-          "16: warm batch's schedule counters differ from the cold one's")
-    for e in (eng, svc.engine):
+    check(counters(batch) == counters(batch2) == counters(comps),
+          "16: warm or composite batch's schedule counters differ from the "
+          "cold one's")
+    tier = "fused_global" if on_card else "composite"   # the CPU: plain
+    for e, want_backend in ((eng, tier), (svc.engine, tier),
+                            (comp_eng, "composite")):
         backends = {getattr(wt.step_fn, "backend", "?")
                     for wt in e._win_cache.values()}
-        check(backends == {"composite"}, f"16: window steps {backends}")
+        check(backends == {want_backend}, f"16: window steps {backends}")
 
     def expect(path, kernel, ok, want):
         got = by_path[path][kernel]
         check(not on_card or ok(got), f"16 {path}: {kernel} launched {got} "
               f"times, want {want}")
 
-    iters = {"youtube_batch_cold": batch[0].stats.peel_iters,
-             "youtube_batch_warm": batch2[0].stats.peel_iters,
-             "youtube_wave": sum(w.stats.peel_iters for w in waves),
-             "youtube_service": max(tk.result.stats.peel_iters
+    steps = {"youtube_batch_cold": batch[0].stats.device_steps,
+             "youtube_batch_warm": batch2[0].stats.device_steps,
+             "youtube_wave": sum(w.stats.device_steps for w in waves),
+             "youtube_service": max(tk.result.stats.device_steps
                                     for tk in tks)}
     for path in by_path:
         expect(path, "wave_peel", lambda n: n == 0, "0")
         expect(path, "ssm_scan", lambda n: n == 0, "0")
         expect(path, "ssm_scan_bwd", lambda n: n == 0, "0")
-    for path, it in iters.items():
-        expect(path, "segdeg", lambda n: n >= 2 * it,
-               f">= 2 x {it} peel iterations")
+    for path, st in steps.items():      # one launch a step, nothing else
+        expect(path, "wave_peel_global", lambda n: n >= st,
+               f">= {st} device steps")
+        expect(path, "segdeg", lambda n: n == 0, "0")
+    expect("youtube_wave", "wave_peel_global",
+           lambda n: n == steps["youtube_wave"],
+           f"{steps['youtube_wave']}, one a step")
+    it = comps[0].stats.peel_iters
+    expect("youtube_composite_batch", "segdeg", lambda n: n >= 2 * it,
+           f">= 2 x {it} peel iterations")
+    for path in ("youtube_serial", "youtube_composite_batch"):
+        expect(path, "wave_peel_global", lambda n: n == 0, "0")
     expect("youtube_serial", "segdeg", lambda n: n == 0, "0")
 
     st = batch[0].stats
@@ -4111,18 +4138,20 @@ def phase_youtube(dev) -> dict:
                       num_queries=len(reqs))
     log(f"16 main path: {len(reqs)} queries, "
         f"{sum(len(b) for b in batch)} cores, equal across query_batch "
-        "(cold, warm), looped wave, looped serial and TCQService; cold and "
-        "warm schedule counters equal; every window step composite")
+        "(cold, warm), looped wave, looped serial, TCQService and the "
+        "composite batch; their schedule counters equal; every window step "
+        f"the global tier; composite batch {comp_s:.3f}s")
     log(f"16 query_batch: W={W} (autotune_wave), union window "
         f"{st.window_edges} edges; cold {cold_s:.3f}s, warm {warm_s:.3f}s "
         f"({len(reqs) / warm_s:.3f} queries/s); {st.device_steps} device "
         f"steps, {st.peel_iters} peel iterations, {st.occupancy:.2f} mean "
         f"occupied lanes; looped wave {wave_s:.3f}s "
         f"({sum(w.stats.device_steps for w in waves)} steps, "
-        f"{iters['youtube_wave']} peel iterations); looped serial "
+        f"{sum(w.stats.peel_iters for w in waves)} peel iterations); "
+        "looped serial "
         f"{serial_s:.3f}s ({sum(x.stats.cells_evaluated for x in serials)} "
         f"cells); TCQService {svc_s:.3f}s")
-    del svc, tks, waves, serials, batch2
+    del svc, tks, waves, serials, batch2, comps, comp_eng
 
     busy = profiled(lambda: eng.query_batch(reqs), "16 query_batch (warm)",
                     cpu_ops=False)
@@ -4178,9 +4207,52 @@ def phase_youtube(dev) -> dict:
             f"{ms:.4f} ms a call (CUDA events), device time "
             f"{fmt_ms(dev_ms)} (trace {trace}); bound {b_ms:.5f} ms ({b_by}, the {nvalid} "
             f"rows with an id below {s})")
+
+    # row 1b: the global tier's step at the batch's union TEL, W lanes of
+    # the requests' windows from all-ones rows
+    pick = [reqs[i % len(reqs)] for i in range(W)]
+    lanes = [torch.tensor([r[f] for r in pick], dtype=torch.int32,
+                          device=dev) for f in ("ts", "te", "k")]
+    lanes.append(torch.ones(W, dtype=torch.int32, device=dev))
+    alive0 = torch.ones((W, wt.num_vertices), dtype=torch.bool, device=dev)
+    step = wt.step_fn
+    check(step.backend == tier, f"16: a {step.backend} step")
+    bands = getattr(step, "bands", None) or tel_bands(tel, wt.num_vertices)
+    plain = make_composite_step(tel, wt.num_vertices)
+    rg, rp = step(alive0.clone(), *lanes), plain(alive0, *lanes)
+    torch.cuda.synchronize()
+    assert_steps_equal(rg, rp, "16 global tier vs plain step")
+    iters = int(rg.iters)
+    buf = alive0.clone()
+    refill = lambda: buf.copy_(alive0)          # noqa: E731
+    glob_ms = time_ms(lambda: wave_peel_global(tel, bands, buf, *lanes),
+                      10, setup=refill)
+    glob_dev, glob_trace = device_ms(
+        lambda: wave_peel_global(tel, bands, buf, *lanes), 10,
+        "wave_peel_global_kernel", setup=refill)
+    plain_ms = time_ms(lambda: plain(alive0, *lanes), 3)
+    comp_step = TCQEngine(g, use_kernel=False)._window_tel(lo, hi).step_fn
+    comp_ms = time_ms(lambda: comp_step(alive0.clone(), *lanes), 3)
+    cost = canonical_step_cost(tel, bands, lanes[0], lanes[1], lanes[3],
+                               [iters] * W, wt.num_vertices)
+    g_bound, g_by = bound(cost["bytes"], cost["ops"])
+    glob_row = {"W": W, "E": int(tel.t.shape[0]), "P": tel.num_pairs,
+                "V": wt.num_vertices, "HP": int(tel.hp_src.shape[0]),
+                "iters": iters, "ms": glob_ms, "device_ms": glob_dev,
+                "device_trace": glob_trace, "bound_ms": g_bound,
+                "bound_by": g_by, "plain_ms": plain_ms,
+                "composite_ms": comp_ms}
+    log(f"16 wave_peel_global at W={W}, E={tel.t.shape[0]}, "
+        f"P={tel.num_pairs}, V={wt.num_vertices} ({iters} iterations): "
+        f"bit-identical to the plain step; {glob_ms:.4f} ms a call (CUDA "
+        f"events), device time {fmt_ms(glob_dev)} (trace {glob_trace}); "
+        f"bound {g_bound:.5f} ms ({g_by}: {cost['bytes']} bytes, "
+        f"{cost['ops']} operations); plain step {plain_ms:.4f} ms, the "
+        f"composite over segdeg {comp_ms:.4f} ms")
     phase_s = time.perf_counter() - t_phase
     log(f"phase 16 took {phase_s:.1f}s")
-    return {"by_path": by_path, "segdeg": seg_rows}
+    return {"by_path": by_path, "segdeg": seg_rows,
+            "wave_peel_global": glob_row}
 
 
 def main() -> int:

@@ -514,9 +514,10 @@ def make_sharded_kernel_step(mesh, tel, num_vertices: int, *,
 
     Only meshes with one model shard qualify (edges replicated, lanes
     sharded over pod x data), and only where ``use_kernel`` asks for the
-    kernel under the capacity rule (``wave_peel.ops.wants_kernel``: None
-    takes it on CUDA for a V that fits its shared memory); returns None
-    otherwise, where the composite step over segdeg is the path.
+    kernel under the mesh's capacity rule (``wave_peel.ops.wants_kernel``:
+    None takes it on CUDA for a V that fits its shared memory; the mesh
+    has no global-memory tier); returns None otherwise, where the
+    composite step over segdeg is the path.
     ``use_kernel=True`` on a V above the limit raises
     (``make_fused_wave_step``); on a CPU TEL the step is the kernel's
     plain version.
@@ -783,10 +784,10 @@ class DistributedTCQ:
 
     On a one-rank mesh the sharded program degenerates to the composite
     with no collectives, so it routes through
-    ``core.wave.make_wave_step_fn`` instead: on the card the fused kernel
-    where V fits its shared memory and the composite over segdeg above
-    it, plain versions on the CPU (``use_fused=False`` keeps the sharded
-    program).  Meshes of several ranks always run the sharded step.
+    ``core.wave.make_wave_step_fn`` instead: on the card the wave_peel
+    kernel's tier for V (shared memory where V fits it, global memory
+    above), plain versions on the CPU (``use_fused=False`` keeps the
+    sharded program).  Meshes of several ranks always run the sharded step.
     """
 
     def __init__(self, graph: TemporalGraph, mesh, combine: str = "rs_ag",

@@ -109,13 +109,14 @@ class TCQEngine:
     """Holds the device TEL for one temporal graph and answers TCQs on it.
 
     ``device`` defaults to CUDA (raising without it).  ``use_kernel``
-    selects the wave step: True the fused wave-peel kernel (raising for a
-    graph whose vertex capacity exceeds its shared memory), False the
+    selects the wave step: True the fused wave-peel kernel, False the
     composite lowering (torch gathers + the segdeg kernel), None (default)
     a choice made for each window TEL when its step is built: the fused
-    kernel on CUDA where V fits it (V <= 370,688 on an H100,
-    ``wave_peel.ops.fits``), the composite above that.  On the CPU both
-    run plain PyTorch.
+    kernel on CUDA.  Its tier follows V alone: the shared-memory kernel
+    where V fits it (V <= 370,688 on an H100, ``wave_peel.ops.fits``),
+    the global-memory tier above that; on a mesh the composite takes the
+    place of the global tier, and ``use_kernel=True`` raises there.  On
+    the CPU every choice runs plain PyTorch.
 
     ``degree_fn`` (second positional, as in the JAX package) replaces the
     degree semantics on the serial path (see the module docstring); it

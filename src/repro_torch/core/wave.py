@@ -9,19 +9,23 @@ pack for W lanes) — has two lowerings behind one dispatcher,
 :func:`make_wave_step_fn`:
 
   * **fused** (``kernels/wave_peel``): one CUDA kernel launch runs the
-    whole fixpoint loop of every lane;
+    whole fixpoint loop of every lane, in one of two tiers: ``"fused"``
+    holds each lane's state in a thread-block cluster's shared memory,
+    ``"fused_global"`` in global memory;
   * **composite** (this module's ``peel_to_fixpoint`` chain): torch
     gathers plus the two segment sums, which launch the ``kernels/segdeg``
     CUDA kernel on the card and run its plain version on the CPU.
 
-On the card the dispatcher builds the fused step for a TEL whose V fits
-the kernel's shared memory (``wave_peel.ops.fits``: V <= 370,688 on an
-H100) and the composite above it, as the JAX package leaves its Pallas
-step above its VMEM budget.  On CPU tensors both lowerings run plain
-PyTorch; on CUDA tensors each runs its kernel or raises, with or without
-a :class:`ResilienceConfig`, which on the card only logs the failure
-(:class:`DegradationLadder`).  All of
-them are bit-identical to the JAX package's lowerings on every
+On the card the dispatcher builds the shared-memory tier for a TEL whose
+V fits it (``wave_peel.ops.fits``: V <= 370,688 on an H100) and the
+global-memory tier above it (``wave_peel.ops.kernel_tier``); the JAX
+package leaves its Pallas step for the composite above its VMEM budget,
+and so do the port's mesh paths.  The composite runs where asked for
+(``use_kernel=False``) and on the CPU, where every lowering is plain
+PyTorch, the plain version both tiers are held to.  On CUDA tensors each
+runs its kernel or raises, with or without a :class:`ResilienceConfig`,
+which on the card only logs the failure (:class:`DegradationLadder`).  All
+of them are bit-identical to the JAX package's lowerings on every
 ``StepResult`` field (tests/test_torch_wave.py).
 
 Packed mask words are int32 tensors holding the uint32 bit patterns
@@ -320,8 +324,8 @@ class ResilienceConfig:
         build time — the fault-injection seam (``core/faultinject.py``).
 
     The JAX package's ``interpret`` and ``vmem_budget_bytes`` have no
-    counterpart: the kernel has no interpret mode, and its size limit is
-    the card's shared memory (``wave_peel.ops.fits``), not a knob.
+    counterpart: the kernel has no interpret mode, and its tier follows
+    V and the device (``wave_peel.ops.kernel_tier``), not a knob.
     """
 
     tripwire_every: int = 64
@@ -349,15 +353,14 @@ class DegradationLadder:
 
     Demotion is for CPU tensors only.  On the card the ladder holds one
     rung, the step :func:`make_wave_step_fn` would build without it (the
-    wave_peel kernel, or the composite over the segdeg kernel): a build
-    failure raises, and a failed call or a tripwire divergence is logged
-    in ``events`` and raised, never replayed elsewhere.
+    wave_peel kernel's tier for V, ``"fused"`` or ``"fused_global"``, or
+    the composite over the segdeg kernel): a build failure raises, and a
+    failed call or a tripwire divergence is logged in ``events`` and
+    raised, never replayed elsewhere.
 
-    ``use_kernel`` is the request, as :func:`make_wave_step_fn` takes it.
-    When the capacity rule turns an automatic request away from the fused
-    kernel (V above its shared memory), the ladder starts on the
-    composite and logs one ``"smem_limit"`` event, as the JAX ladder logs
-    ``"vmem_budget"``.
+    ``use_kernel`` is the request, as :func:`make_wave_step_fn` takes it;
+    the capacity rule picks the tier and demotes nothing, so it logs no
+    event.
     """
 
     def __init__(self, tel: DeviceTEL, num_vertices: int, *,
@@ -377,12 +380,10 @@ class DegradationLadder:
         from repro_torch.kernels.wave_peel import ops as peel
 
         rungs = []
-        reason = peel.declined(use_kernel, num_vertices, tel.t.device)
-        if reason is not None:
-            self._log("fused", "smem_limit", reason)
-        elif peel.wants_kernel(use_kernel, num_vertices, tel.t.device):
-            rungs.append(("fused", peel.make_fused_wave_step(
-                tel, num_vertices, donate=False)))
+        tier = peel.kernel_tier(use_kernel, num_vertices, tel.t.device)
+        if tier is not None:
+            rungs.append((tier, peel.TIERS[tier](tel, num_vertices,
+                                                 donate=False)))
         if self.demotes or not rungs:
             rungs.append(("composite", make_composite_step(
                 tel, num_vertices, seg_pair=seg_pair, seg_vert=seg_vert,
@@ -470,15 +471,15 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
     """Build the device step for one TEL: ``step(alive, ts, te, k, h) ->
     StepResult`` with a ``.backend`` attribute.
 
-    use_kernel=True takes the fused wave-peel kernel (raising for a V
-    above its shared memory), False the composite lowering over
-    ``seg_pair``/``seg_vert`` (by default the segdeg closures: the kernel
-    on CUDA, never the plain segment sum there); None applies the
-    capacity rule once, here: the fused kernel for a TEL on CUDA (or
-    ``meta``) whose V fits it (``wave_peel.ops.fits``), the composite
-    above that and on the CPU.  ``.backend`` says which was built
-    (``"fused"`` or ``"composite"``).  On CPU tensors either choice runs
-    plain PyTorch.
+    use_kernel=True takes the wave_peel kernel's tier that fits V, False
+    the composite lowering over ``seg_pair``/``seg_vert`` (by default the
+    segdeg closures: the kernel on CUDA, never the plain segment sum
+    there); None applies the capacity rule once, here, by V and the
+    device alone (``wave_peel.ops.kernel_tier``): on CUDA (or ``meta``)
+    the shared-memory tier where V fits it (``wave_peel.ops.fits``), the
+    global-memory tier above that; the composite on the CPU.
+    ``.backend`` says which was built (``"fused"``, ``"fused_global"`` or
+    ``"composite"``).  On CPU tensors every choice runs plain PyTorch.
     ``donate=True`` peels the caller's ``alive`` buffer in place (the
     pipeline's persistent lane slab); leave it False when the caller
     reuses its buffer.
@@ -498,8 +499,9 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
         return DegradationLadder(tel, num_vertices, seg_pair=seg_pair,
                                  seg_vert=seg_vert, use_kernel=use_kernel,
                                  config=resilience)
-    if peel.wants_kernel(use_kernel, num_vertices, tel.t.device):
-        return peel.make_fused_wave_step(tel, num_vertices, donate=donate)
+    tier = peel.kernel_tier(use_kernel, num_vertices, tel.t.device)
+    if tier is not None:
+        return peel.TIERS[tier](tel, num_vertices, donate=donate)
     if seg_pair is None:
         seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
     if seg_vert is None:

@@ -1,25 +1,34 @@
-"""Fused wave step: the CUDA kernel's wrapper, its band tables and its cost.
+"""Fused wave steps: the CUDA kernels' wrappers, their band tables and cost.
 
-``make_fused_wave_step`` checks one TEL, builds its band tables once (on
-the TEL's device, from the canonical sort) and returns ``step(alive, ts,
-te, k, h) -> StepResult``, bit-identical to the composite lowering.  On a
-CUDA TEL every call is one launch of ``csrc/wave_peel.cu``; on a CPU TEL
-the step is the plain version, ``core.wave.make_composite_step`` over the
-plain segment sum.  On a ``meta`` TEL (a dry run) a call computes nothing
-and returns the outputs' shapes, charging the dry run's cost counter the
-dense count's bytes (``fused_step_cost``).  Any other device, or a TEL the
-kernel cannot take, raises.
+Two kernel tiers compute the same step, bit-identical to the composite
+lowering.  ``make_fused_wave_step`` (``csrc/wave_peel.cu``) holds each
+lane's state in a thread-block cluster's shared memory;
+``make_global_wave_step`` (``csrc/wave_peel_global.cu``) holds it in
+global memory, for TELs whose V does not fit there.  Each checks one TEL,
+builds its band tables once (on the TEL's device, from the canonical sort)
+and returns ``step(alive, ts, te, k, h) -> StepResult``.  On a CUDA TEL
+every call is one launch; on a CPU TEL the step is the plain version,
+``core.wave.make_composite_step`` over the plain segment sum.  On a
+``meta`` TEL (a dry run) a call computes nothing and returns the outputs'
+shapes, charging the dry run's cost counter the dense count's bytes
+(``fused_step_cost``).  Any other device, or a TEL the kernels cannot
+take, raises.
 
-The kernel's one size limit is shared memory: V <= 370,688 vertices on an
-H100 (:func:`max_vertices` from the built library, :func:`mirror_max_vertices`
-where none is loaded).  :func:`fits` is the capacity rule the dispatchers
-(``core.wave.make_wave_step_fn``, the ladders,
-``core.distributed.make_sharded_kernel_step``) apply once per window TEL,
-when its step is built: a step asked for with ``use_kernel=None`` is this
-kernel where the TEL's V fits, else the composite step over the segdeg
-kernel, as the JAX package leaves its Pallas step for the composite above
-its VMEM budget.  ``use_kernel=True`` asks for this kernel whatever V, and
-raises above the limit.
+The shared-memory kernel's one size limit: V <= 370,688 vertices on an
+H100 (:func:`max_vertices` from the built library,
+:func:`mirror_max_vertices` where none is loaded).  The capacity rule is
+applied once per window TEL, when its step is built, and depends only on
+V and the device.  :func:`kernel_tier` is the single-device dispatchers'
+(``core.wave.make_wave_step_fn``, its ladder): a step asked for with
+``use_kernel=None`` on CUDA or ``meta`` is the shared-memory kernel where
+the TEL's V :func:`fits`, else the global-memory tier; ``use_kernel=True``
+takes whichever tier fits V; ``use_kernel=False``, and ``None`` on the
+CPU, the composite.  The mesh's dispatchers
+(``core.distributed.make_sharded_kernel_step`` and its ladder) have no
+global tier: :func:`wants_kernel` and :func:`declined` give them the
+shared-memory kernel where V fits and the composite over segdeg above it,
+as the JAX package leaves its Pallas step for the composite above its
+VMEM budget; there ``use_kernel=True`` raises above the limit.
 """
 
 from __future__ import annotations
@@ -173,11 +182,26 @@ def fits(num_vertices: int, device) -> bool:
     return limit is None or int(num_vertices) <= limit
 
 
+def kernel_tier(use_kernel: Optional[bool], num_vertices: int,
+                device) -> Optional[str]:
+    """The single-device step asked for with ``use_kernel``: ``"fused"``
+    (the shared-memory kernel) where the TEL :func:`fits`, else
+    ``"fused_global"`` (the global-memory tier), for True and for None on
+    CUDA and ``meta``; None (the composite) for False and for None on any
+    other device."""
+    dev = torch.device(device)
+    if use_kernel is not None and not use_kernel:
+        return None
+    if use_kernel is None and dev.type not in ("cuda", "meta"):
+        return None
+    return "fused" if fits(num_vertices, dev) else "fused_global"
+
+
 def wants_kernel(use_kernel: Optional[bool], num_vertices: int,
                  device) -> bool:
-    """Whether a step asked for with ``use_kernel`` is the fused kernel:
-    True and False as given, None the kernel on CUDA and ``meta`` where
-    the TEL :func:`fits`, else the composite."""
+    """Whether a mesh's step asked for with ``use_kernel`` is the
+    shared-memory kernel: True and False as given, None the kernel on CUDA
+    and ``meta`` where the TEL :func:`fits`, else the composite."""
     if use_kernel is not None:
         return bool(use_kernel)
     dev = torch.device(device)
@@ -186,9 +210,10 @@ def wants_kernel(use_kernel: Optional[bool], num_vertices: int,
 
 def declined(use_kernel: Optional[bool], num_vertices: int,
              device) -> Optional[str]:
-    """Why the capacity rule turned an automatic request
-    (``use_kernel=None``) on CUDA or ``meta`` away from the kernel, as a
-    ladder's ``smem_limit`` event says it; None when it did not."""
+    """Why the mesh's capacity rule turned an automatic request
+    (``use_kernel=None``) on CUDA or ``meta`` away from the shared-memory
+    kernel, as a mesh ladder's ``smem_limit`` event says it; None when it
+    did not."""
     dev = torch.device(device)
     if use_kernel is not None or dev.type not in ("cuda", "meta") or \
             fits(num_vertices, dev):
@@ -234,6 +259,51 @@ def wave_peel(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts, te, k,
 
 
 wave_peel.launches = 0
+
+_GLOBAL_INT_ARGS = frozenset({7, 11, 15, 16, 17, 20, 25, 30})
+
+
+def wave_peel_global(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts,
+                     te, k, h):
+    """One cooperative launch over a CUDA TEL of any V (the global-memory
+    tier): peels ``alive`` [W, V] bool in place.
+
+    Takes and returns what :func:`wave_peel` does; every lane's iters is
+    the lanes' shared count.  Its scratch (kept half-pairs, touched words,
+    two degree buffers) is allocated here for each call, so the caching
+    allocator reuses it.
+    """
+    w, v = alive.shape
+    dev = alive.device
+    words = -(-max(v, 1) // 32)
+    packed = torch.empty((w, words), dtype=torch.int32, device=dev)
+    lo, hi, ne, iters = torch.empty((4, w), dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        charge_kernel("wave_peel_global", fused_step_cost(
+            tel.t.shape[0], tel.num_pairs, tel.hp_src.shape[0], v,
+            [0] * w)["bytes"])
+        return packed, lo, hi, ne, iters
+    nhp = tel.hp_src.shape[0]
+    halves = torch.empty((w, nhp, 4), dtype=torch.int32, device=dev)
+    touched = torch.empty((w, words), dtype=torch.int32, device=dev)
+    deg = torch.empty((2, w, v), dtype=torch.int32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(bind("wave_peel_global_launch", _GLOBAL_INT_ARGS, 32)(
+        ts.data_ptr(), te.data_ptr(), k.data_ptr(), h.data_ptr(),
+        tel.t.data_ptr(), tel.src.data_ptr(), tel.dst.data_ptr(),
+        tel.t.shape[0], tel.pair_u.data_ptr(), tel.pair_v.data_ptr(),
+        bands.poff.data_ptr(), tel.num_pairs, tel.hp_src.data_ptr(),
+        tel.hp_pair.data_ptr(), bands.hoff.data_ptr(), v, bands.orphan_lo,
+        bands.orphan_hi, alive.data_ptr(), halves.data_ptr(), nhp,
+        packed.data_ptr(), touched.data_ptr(), deg.data_ptr(),
+        flags.data_ptr(), words, lo.data_ptr(), hi.data_ptr(), ne.data_ptr(),
+        iters.data_ptr(), w, stream), "wave_peel_global")
+    wave_peel_global.launches += 1
+    return packed, lo, hi, ne, iters
+
+
+wave_peel_global.launches = 0
 
 
 def _check_tel(tel: DeviceTEL, num_vertices: int) -> None:
@@ -305,25 +375,13 @@ def tel_bands(tel: DeviceTEL, num_vertices: int) -> Bands:
     return Bands(poff, hoff, int(lo), int(hi))
 
 
-def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
-                         donate: bool = False):
-    """Build the fused step for one (capacity-shaped) DeviceTEL.
-
-    Returns ``step(alive [W, V] bool, ts, te, k, h) -> StepResult``.
-    ``donate=True`` peels ``alive`` in place and returns it as
-    ``StepResult.alive``; otherwise the kernel peels a copy.
-    """
+def _kernel_step(tel: DeviceTEL, num_vertices: int, launch, backend: str,
+                 *, donate: bool):
+    """A kernel tier's ``step(alive, ts, te, k, h) -> StepResult`` over a
+    CUDA or ``meta`` TEL (checked and its bands built here), one
+    ``launch`` (:func:`wave_peel` or :func:`wave_peel_global`) a call."""
     dev = tel.t.device
-    if dev.type == "cpu":
-        return make_composite_step(tel, num_vertices, donate=donate)
-    if dev.type not in ("cuda", "meta"):
-        raise ValueError(f"wave_peel: unsupported device {dev}")
     v = int(num_vertices)
-    if not fits(v, dev):
-        raise ValueError(
-            f"wave_peel: V = {v} vertices do not fit one block's shared "
-            f"memory on this card (the kernel takes V <= "
-            f"{vertex_limit(dev)})")
     bands = None                    # a meta TEL has no data to check
     if dev.type == "cuda":
         _check_tel(tel, v)
@@ -340,11 +398,60 @@ def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
         w = alive.shape[0]
         out = alive if donate else \
             alive.clone(memory_format=torch.contiguous_format)
-        packed, lo, hi, ne, iters = wave_peel(
+        packed, lo, hi, ne, iters = launch(
             tel, bands, out, lanes(ts, w, dev), lanes(te, w, dev),
             lanes(k, w, dev), lanes(h, w, dev))
         return StepResult(out, packed, lo, hi, ne, iters.max())
 
-    step.backend = "fused"
+    step.backend = backend
     step.bands = bands
     return step
+
+
+def _plain_or_device(tel: DeviceTEL, num_vertices: int, donate: bool):
+    """The plain version's step on a CPU TEL, None on CUDA and ``meta``;
+    raises on any other device."""
+    dev = tel.t.device
+    if dev.type == "cpu":
+        return make_composite_step(tel, num_vertices, donate=donate)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"wave_peel: unsupported device {dev}")
+    return None
+
+
+def make_fused_wave_step(tel: DeviceTEL, num_vertices: int, *,
+                         donate: bool = False):
+    """Build the shared-memory kernel's step for one (capacity-shaped)
+    DeviceTEL.
+
+    Returns ``step(alive [W, V] bool, ts, te, k, h) -> StepResult``.
+    ``donate=True`` peels ``alive`` in place and returns it as
+    ``StepResult.alive``; otherwise the kernel peels a copy.  Raises for a
+    V above the kernel's shared memory.
+    """
+    plain = _plain_or_device(tel, num_vertices, donate)
+    if plain is not None:
+        return plain
+    dev, v = tel.t.device, int(num_vertices)
+    if not fits(v, dev):
+        raise ValueError(
+            f"wave_peel: V = {v} vertices do not fit one block's shared "
+            f"memory on this card (the kernel takes V <= "
+            f"{vertex_limit(dev)})")
+    return _kernel_step(tel, v, wave_peel, "fused", donate=donate)
+
+
+def make_global_wave_step(tel: DeviceTEL, num_vertices: int, *,
+                          donate: bool = False):
+    """Build the global-memory tier's step for one DeviceTEL of any V, as
+    :func:`make_fused_wave_step` builds the shared-memory kernel's."""
+    plain = _plain_or_device(tel, num_vertices, donate)
+    if plain is not None:
+        return plain
+    return _kernel_step(tel, int(num_vertices), wave_peel_global,
+                        "fused_global", donate=donate)
+
+
+# what :func:`kernel_tier` names -> the function that builds its step
+TIERS = {"fused": make_fused_wave_step,
+         "fused_global": make_global_wave_step}

@@ -1,15 +1,14 @@
-"""The wave step's capacity rule: the fused wave_peel kernel for a TEL whose
-vertex count fits its shared memory, the composite over segdeg above it.
+"""The wave step's capacity rule: the shared-memory wave_peel kernel for a
+TEL whose vertex count fits it, the global-memory tier above it; the mesh
+paths keep the composite over segdeg above the limit.
 
 On the CPU every step is a plain version, whatever V, so the rule is held
 on ``meta`` TELs (the dry run's device, which models the card) with the
 kernel's limit monkeypatched low.  Beside it the JAX package's own
 decision (its Pallas step above the VMEM budget gives way to the XLA
-composite) and the step and engine it leaves, held bit for bit to the
-port's on the CPU.
+composite) and the step it leaves, held bit for bit to the port's plain
+version on the CPU, which both kernel tiers are held to on the card.
 """
-
-import contextlib
 
 import numpy as np
 import pytest
@@ -81,44 +80,54 @@ def _rule(g, tel, v, fits):
     assert (tpeel.declined(None, v, meta) is None) == fits
     assert tpeel.declined(True, v, meta) is None
     assert tpeel.declined(None, 10 ** 9, "cpu") is None
+    # the single-device dispatchers' tiers
+    tier = "fused" if fits else "fused_global"
+    assert tpeel.kernel_tier(None, v, meta) == tier
+    assert tpeel.kernel_tier(True, v, meta) == tier
+    assert tpeel.kernel_tier(False, v, meta) is None
+    assert tpeel.kernel_tier(None, v, "cpu") is None
+    assert tpeel.kernel_tier(True, 10 ** 9, "cpu") == "fused"
+    assert tpeel.kernel_tier(None, v - 1, meta) == "fused"
 
 
 def _step(g, tel, v, fits):
-    assert twave.make_wave_step_fn(tel, v).backend == \
-        ("fused" if fits else "composite")
+    tier = "fused" if fits else "fused_global"
+    assert twave.make_wave_step_fn(tel, v).backend == tier
     assert twave.make_wave_step_fn(tel, v, use_kernel=False).backend == \
         "composite"
-    if fits:
-        assert twave.make_wave_step_fn(tel, v, use_kernel=True).backend == \
-            "fused"
-    else:
+    assert twave.make_wave_step_fn(tel, v, use_kernel=True).backend == tier
+    if not fits:     # the shared-memory kernel by name still refuses V
         with pytest.raises(ValueError, match="shared memory"):
-            twave.make_wave_step_fn(tel, v, use_kernel=True)
+            tpeel.make_fused_wave_step(tel, v)
+    assert tpeel.make_global_wave_step(tel, v).backend == "fused_global"
 
 
 def _engine(g, tel, v, fits):
     Ts, Te = g.span
+    tier = "fused" if fits else "fused_global"
     for resilience in (None, True):
         eng = TCQEngine(g, device="meta", resilience=resilience)
         for window in ((Ts, Te), (Ts + 40, Te - 40)):
             step = eng._window_tel(*window).step_fn
-            assert step.backend == ("fused" if fits else "composite")
+            assert step.backend == tier
             if resilience:
-                assert [(e["rung"], e["reason"]) for e in step.events] == \
-                    ([] if fits else [("fused", "smem_limit")])
-    with pytest.raises(ValueError, match="shared memory") if not fits \
-            else contextlib.nullcontext():
-        TCQEngine(g, device="meta", use_kernel=True)._window_tel(Ts, Te)
+                assert step.events == []
+    for use_kernel, backend in ((True, tier), (False, "composite")):
+        step = TCQEngine(g, device="meta",
+                         use_kernel=use_kernel)._window_tel(Ts, Te).step_fn
+        assert step.backend == backend
 
 
 def _ladder(g, tel, v, fits):
+    tier = "fused" if fits else "fused_global"
+    # a meta TEL demotes as CPU tensors do: the tier, then the plain rungs
     step = twave.make_wave_step_fn(tel, v, resilience=ResilienceConfig())
-    assert [name for name, _ in step.rungs][0] == \
-        ("fused" if fits else "composite")
-    events = [(e["rung"], e["reason"]) for e in step.events]
-    assert events == ([] if fits else [("fused", "smem_limit")])
-    if not fits:
-        assert f"V={v} > {v - 1}" in step.events[0]["detail"]
+    assert [name for name, _ in step.rungs] == [tier, "composite", "oracle"]
+    assert step.backend == tier and step.events == []    # nothing demoted
+    step = twave.make_wave_step_fn(tel, v, use_kernel=False,
+                                   resilience=ResilienceConfig())
+    assert [name for name, _ in step.rungs] == ["composite", "oracle"]
+    assert step.events == []
 
 
 def _sharded(g, tel, v, fits):
@@ -152,8 +161,17 @@ def _sharded(g, tel, v, fits):
         [("fused", "multi_shard")]
 
 
+def _service(g, tel, v, fits):
+    from repro_torch.core import TCQService
+
+    svc = TCQService(g, device="meta")
+    Ts, Te = g.span
+    assert svc.engine._window_tel(Ts + 40, Te - 40).step_fn.backend == \
+        ("fused" if fits else "fused_global")
+
+
 _CASES = {"rule": _rule, "step": _step, "engine": _engine,
-          "ladder": _ladder, "sharded": _sharded}
+          "ladder": _ladder, "sharded": _sharded, "service": _service}
 
 
 @pytest.mark.parametrize("where", ["at", "above"])
@@ -221,3 +239,51 @@ def test_engine_on_phase16_draw_matches_jax(mode):
         for got, want in zip(te.query_batch(reqs), je.query_batch(reqs)):
             assert_same_cores(got, want, "query_batch")
             assert_same_counters(got, want, "query_batch")
+
+
+def test_global_tier_meta_charges_the_dense_count():
+    """On ``meta`` the global-memory tier computes nothing, launches
+    nothing and charges the dry run the dense count, as wave_peel does."""
+    from repro_torch.launch.op_cost import OpCost
+
+    g = _graph()
+    v, w = g.num_vertices, 4
+    tel = g.device_tel(device="meta")
+    step = tpeel.make_global_wave_step(tel, v)
+    launches = tpeel.wave_peel_global.launches
+    alive = torch.empty((w, v), dtype=torch.bool, device="meta")
+    with OpCost() as cost:
+        r = step(alive, 0, 10, 2, 1)
+    assert tuple(r.packed.shape) == (w, -(-v // 32))
+    assert tpeel.wave_peel_global.launches == launches
+    assert cost.kernels["wave_peel_global"]["bytes"] == \
+        tpeel.fused_step_cost(tel.t.shape[0], tel.num_pairs,
+                              tel.hp_src.shape[0], v, [0] * w)["bytes"]
+    assert "wave_peel" not in cost.kernels
+
+
+@pytest.mark.parametrize("bad", ["device", "dtype", "width", "no lanes",
+                                 "donated view"])
+def test_global_tier_refuses_what_wave_peel_refuses(bad):
+    """The global tier's wrapper takes what wave_peel's takes: a TEL on a
+    device with neither a kernel nor a plain version, and a lane buffer of
+    another dtype, width or no lanes (or a view, when donated), raise.  The
+    TEL's layout and dtypes are held on the card (tests/test_torch_cuda.py),
+    where the kernel reads them."""
+    from test_torch_wave import _Elsewhere
+
+    g = _graph()
+    v = g.num_vertices
+    tel = g.device_tel(device="meta")
+    if bad == "device":
+        with pytest.raises(ValueError, match="unsupported device"):
+            tpeel.make_global_wave_step(tel._replace(t=_Elsewhere()), v)
+        return
+    alive = {"dtype": torch.empty((4, v), dtype=torch.uint8),
+             "width": torch.empty((4, v + 1), dtype=torch.bool),
+             "no lanes": torch.empty((0, v), dtype=torch.bool),
+             "donated view": torch.empty((v, 4), dtype=torch.bool).T,
+             }[bad].to("meta")
+    step = tpeel.make_global_wave_step(tel, v, donate=bad == "donated view")
+    with pytest.raises(ValueError, match="alive must be"):
+        step(alive, 0, 10, 2, 1)

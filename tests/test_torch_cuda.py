@@ -145,6 +145,111 @@ def test_wave_peel_refuses_more_vertices_than_it_holds(cuda):
         make_composite_step(tel, v)(alive, 0, 9, 1, 1), "largest V")
 
 
+# ------------------------------- wave_peel's global-memory tier
+def _global_step(tel, nv, donate=False):
+    step = peel.make_global_wave_step(tel, nv, donate=donate)
+    assert step.backend == "fused_global"
+    return step
+
+
+@pytest.mark.parametrize("seed,padded", [(1000 + s, False) for s in range(6)]
+                         + [(2000 + s, True) for s in range(6)])
+def test_global_tier_matches_plain_step(cuda, seed, padded):
+    """Forced at a V both tiers take: bit-identical to the plain step on
+    every StepResult field, iters included (empty windows, sentinel
+    padding, warm rows), and one launch a step."""
+    tel, nv, args = _case(seed, padded, cuda)
+    n0 = peel.wave_peel_global.launches
+    got = _global_step(tel, nv)(*args)
+    assert peel.wave_peel_global.launches == n0 + 1
+    _assert_steps_equal(got, make_composite_step(tel, nv)(*args),
+                        f"global vs plain {seed}")
+    _assert_steps_equal(got, make_wave_step_fn(tel, nv, use_kernel=True)(
+        *args), f"global vs wave_peel {seed}")
+
+
+@pytest.mark.parametrize("h", [0, 1, 2])
+@pytest.mark.parametrize("seed", [1000, 2001, 2004])
+def test_global_tier_h_and_mixed_k(cuda, seed, h):
+    tel, nv, (alive, ts, te, _, _) = _case(seed, seed >= 2000, cuda)
+    k = torch.arange(ts.shape[0], dtype=torch.int32, device=cuda) % 5
+    args = (alive, ts, te, k, torch.full_like(ts, h))
+    _assert_steps_equal(_global_step(tel, nv)(*args),
+                        make_composite_step(tel, nv)(*args), (seed, h))
+
+
+@pytest.mark.parametrize("W", [1, 5, 33])
+def test_global_tier_wide_waves_and_hub(cuda, W):
+    """Lanes past every edge, empty lanes, h in 0..3, a hub pair of 20,000
+    edges whose half-pairs span blocks; donated and not."""
+    tel, nv, args = _wide_case(W, cuda, v=500, e=5000, tmax=200, W=W,
+                               hub=20_000)
+    want = make_composite_step(tel, nv)(*args)
+    for donate in (False, True):
+        buf = args[0].clone()
+        got = _global_step(tel, nv, donate=donate)(buf, *args[1:])
+        _assert_steps_equal(got, want, f"W={W}, donate={donate}")
+        assert torch.equal(buf, want.alive if donate else args[0])
+
+
+def test_global_tier_above_the_smem_limit(cuda):
+    """V = max_vertices() + 1, lanes with per-lane windows inside the
+    engine's union-window TEL (its edges padded to a power of two), warm
+    starts from the union window's cores and all-ones rows, h in
+    {0, 1, 2}: the tier the default step takes there, equal to the
+    composite over segdeg and to the plain step."""
+    v = peel.max_vertices() + 1
+    g = chip_smoke.boundary_graph(v)
+    eng = TCQEngine(g)
+    wt = eng._window_tel(100, 300)
+    assert wt.step_fn.backend == "fused_global"
+    tel = wt.tel
+    w = 6
+    ts = torch.tensor([100, 120, 150, 200, 301, 0], dtype=torch.int32)
+    te = torch.tensor([300, 260, 250, 290, 400, -1], dtype=torch.int32)
+    k = torch.tensor([2, 3, 1, 4, 2, 2], dtype=torch.int32)
+    h = torch.tensor([1, 2, 0, 1, 1, 1], dtype=torch.int32)
+    lanes = [x.to(cuda) for x in (ts, te, k, h)]
+    wide = make_composite_step(tel, v)(
+        torch.ones((w, v), dtype=torch.bool, device=cuda), 100, 300,
+        lanes[2], 1).alive
+    comp = make_wave_step_fn(tel, v, use_kernel=False)
+    for alive in (wide, torch.ones_like(wide)):
+        got = _global_step(tel, v)(alive, *lanes)
+        _assert_steps_equal(got, comp(alive, *lanes), "global vs composite")
+        _assert_steps_equal(got, make_composite_step(tel, v)(alive, *lanes),
+                            "global vs plain")
+
+
+def test_global_tier_step_does_not_sync(cuda):
+    """A step reads nothing on the host: the fixpoint loop runs on the
+    card in one launch."""
+    tel, nv, args = _wide_case(3, cuda, v=500, e=5000, tmax=200, W=8)
+    step = _global_step(tel, nv)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_steps_equal(got, make_composite_step(tel, nv)(*args), "no sync")
+
+
+@pytest.mark.parametrize("bad", ["int64 t", "t unsorted in a band"])
+def test_global_tier_refuses_malformed_tels(cuda, bad):
+    tel, nv, _ = _case(1000, False, cuda)
+    if bad == "int64 t":
+        tel, match = tel._replace(t=tel.t.long()), "contiguous 1-D int32"
+    else:
+        pid = tel.pair_id.cpu().numpy()
+        i = int(np.flatnonzero(pid[1:] == pid[:-1])[0])
+        t = tel.t.clone()
+        t[i], t[i + 1] = tel.t[i + 1] + 1, tel.t[i]
+        tel, match = tel._replace(t=t), "canonical layout"
+    with pytest.raises(ValueError, match=match):
+        peel.make_global_wave_step(tel, nv)
+
+
 @pytest.mark.parametrize("q", [1, 3, 4, 5, 64])
 def test_segdeg_kernel_long_runs(cuda, q):
     """A run of 50,000 rows (across 49 to 782 row tiles) among short ones
@@ -678,39 +783,37 @@ def test_ladder_fault_on_card_raises_and_is_logged(cuda):
 @pytest.mark.parametrize("use_kernel", [None, True])
 def test_ladder_over_smem_limit_raises_on_card(cuda, monkeypatch,
                                                use_kernel):
-    """Above the kernel's limit the ladder on the card starts on the
-    composite over segdeg and logs ``smem_limit``, as the JAX ladder logs
-    ``vmem_budget``; its answers are the CPU port's.  Only the kernel
-    asked for by name (``use_kernel=True``) raises."""
+    """Above the shared-memory kernel's limit the ladder on the card holds
+    one rung, the global-memory tier, whether asked for by default or by
+    ``use_kernel=True``, and logs nothing, since nothing was demoted; its
+    answers are the CPU port's, with the tripwire on every call.  Only the
+    shared-memory kernel asked for by name raises."""
     from repro_torch.core import ResilienceConfig
 
     g = _serve_graph()
     monkeypatch.setattr(peel, "max_vertices", lambda: 8)
     tel = g.device_tel(device=cuda)
-    if use_kernel:
-        with pytest.raises(ValueError, match="V <= 8"):
-            make_wave_step_fn(tel, g.num_vertices, use_kernel=True,
-                              resilience=ResilienceConfig())
-        return
-    step = make_wave_step_fn(tel, g.num_vertices,
+    with pytest.raises(ValueError, match="V <= 8"):
+        peel.make_fused_wave_step(tel, g.num_vertices)
+    step = make_wave_step_fn(tel, g.num_vertices, use_kernel=use_kernel,
                              resilience=ResilienceConfig(tripwire_every=1))
-    assert step.backend == "composite" and len(step.rungs) == 1
-    assert [(e["rung"], e["reason"]) for e in step.events] == \
-        [("fused", "smem_limit")]
+    assert step.backend == "fused_global" and len(step.rungs) == 1
+    assert step.events == []
     rng = np.random.default_rng(5)
     w, v = 4, g.num_vertices
     ts = rng.integers(0, 300, w).astype(np.int32)
     args = (rng.random((w, v)) < 0.9, ts, ts + 60,
             rng.integers(1, 4, w).astype(np.int32), np.ones(w, np.int32))
     segdeg.banded_segsum.launches = peel.wave_peel.launches = 0
+    peel.wave_peel_global.launches = 0
     got = step(*(torch.from_numpy(a).to(cuda) for a in args))
-    assert segdeg.banded_segsum.launches > 0
-    assert peel.wave_peel.launches == 0
+    assert peel.wave_peel_global.launches == 1
+    assert segdeg.banded_segsum.launches == peel.wave_peel.launches == 0
     want = make_composite_step(g.device_tel(device="cpu"), v)(
         *(torch.from_numpy(a) for a in args))
     _assert_steps_equal(type(want)(*(x.cpu() for x in got)), want,
                         "ladder above the limit")
-    assert len(step.events) == 1            # the tripwire held
+    assert step.events == []                # the tripwire held
 
 
 def test_wave_peel_limit_equals_its_mirror(cuda):
@@ -724,27 +827,30 @@ def test_wave_peel_limit_equals_its_mirror(cuda):
 @pytest.mark.parametrize("above", [False, True])
 def test_engine_and_service_at_the_smem_limit(cuda, above):
     """V = max_vertices(): the default engine and service take wave_peel;
-    V + 1: the composite over segdeg.  Both answer as ``use_kernel=False``
-    and the CPU port do; ``use_kernel=True`` at V + 1 raises."""
+    V + 1: its global-memory tier, and so does ``use_kernel=True``.  Both
+    answer as ``use_kernel=False`` (the composite over segdeg) and the CPU
+    port do."""
     from repro_torch.core import TCQService
 
     v = peel.max_vertices() + int(above)
     g = chip_smoke.boundary_graph(v)
     reqs = chip_smoke.boundary_requests(g, n=4)
     want = [_digest(r) for r in TCQEngine(g, device="cpu").query_batch(reqs)]
-    kernel, other = (segdeg.banded_segsum, peel.wave_peel) if above else \
-        (peel.wave_peel, segdeg.banded_segsum)
+    kernels = [peel.wave_peel, peel.wave_peel_global, segdeg.banded_segsum]
+    kernel = kernels[int(above)]
     for make in (lambda: TCQEngine(g).query_batch(reqs),
-                 lambda: [tk.result for tk in _service_run(g, reqs)[1]]):
-        kernel.launches = other.launches = 0
+                 lambda: [tk.result for tk in _service_run(g, reqs)[1]],
+                 lambda: TCQEngine(g, use_kernel=True).query_batch(reqs)):
+        for k in kernels:
+            k.launches = 0
         got = make()
-        assert kernel.launches > 0 and other.launches == 0
+        assert kernel.launches > 0
+        assert sum(k.launches for k in kernels) == kernel.launches
         assert [_digest(r) for r in got] == want
+    segdeg.banded_segsum.launches = 0
     assert [_digest(r) for r in TCQEngine(g, use_kernel=False).query_batch(
         reqs)] == want
-    if above:
-        with pytest.raises(ValueError, match="shared memory"):
-            TCQEngine(g, use_kernel=True).query_batch(reqs)
+    assert segdeg.banded_segsum.launches > 0
 
 
 def test_recover_on_card(cuda, tmp_path):
@@ -844,19 +950,24 @@ def test_unit_mesh_kernel_that_declines_raises(nccl_unit_mesh, monkeypatch,
 
 
 def test_unit_mesh_above_the_smem_limit(nccl_unit_mesh):
-    """V = max_vertices() + 1 on the unit mesh over NCCL: the composite
-    over segdeg, the same cores as the CPU port; the kernel by name
-    raises."""
+    """V = max_vertices() + 1 on the unit mesh over NCCL: the mesh has no
+    global-memory tier, so the composite over segdeg, with the same cores
+    as the CPU port and as the mesh-free engine's global tier; the
+    shared-memory kernel by name raises."""
     v = peel.max_vertices() + 1
     g = chip_smoke.boundary_graph(v)
     reqs = chip_smoke.boundary_requests(g, n=3)
     eng = TCQEngine(g, mesh=nccl_unit_mesh)
     peel.wave_peel.launches = segdeg.banded_segsum.launches = 0
+    peel.wave_peel_global.launches = 0
     got = eng.query_batch(reqs)
-    assert peel.wave_peel.launches == 0
+    assert peel.wave_peel.launches == peel.wave_peel_global.launches == 0
     assert segdeg.banded_segsum.launches > 0
     want = TCQEngine(g, device="cpu").query_batch(reqs)
     assert [_digest(r) for r in got] == [_digest(r) for r in want]
+    solo = TCQEngine(g).query_batch(reqs)
+    assert peel.wave_peel_global.launches > 0
+    assert [_digest(r) for r in solo] == [_digest(r) for r in want]
     with pytest.raises(ValueError, match="shared memory"):
         TCQEngine(g, mesh=nccl_unit_mesh, use_kernel=True).query_batch(reqs)
 

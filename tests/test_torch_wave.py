@@ -325,6 +325,74 @@ def _model_wave_peel(tel, nv, alive, ts, te, k, h):
                             i32(los), i32(his), i32(nes), i32(max(its)))
 
 
+def _model_wave_peel_global(tel, nv, alive, ts, te, k, h):
+    """Phases A, T, F, B and C of wave_peel_global.cu, all lanes at once.
+    The blocks' chunks of the half-pair table concatenate to the whole
+    table in order, so the model takes it whole."""
+    bands = tpeel.tel_bands(tel, nv)
+    poff, hoff = bands.poff.long(), bands.hoff.long()
+    t, src, dst = tel.t.long(), tel.src.long(), tel.dst.long()
+    key = tel.pair_id.long() * 2 ** 32 + (t - _I32_MIN)  # sorted: (pair, t)
+    nh = int(hoff[-1])
+    w = alive.shape[0]
+    v = tel.hp_src[:nh].long()
+    p = tel.hp_pair[:nh].long()
+    u = tel.pair_u[p].long()
+    o = torch.where(u == v, tel.pair_v[p].long(), u)
+    lanes = [tuple(int(x[lane]) for x in (ts, te, k, h)) for lane in range(w)]
+    # A: every lane's kept half-pairs; T: the vertices they hold
+    kept, touched = [], torch.zeros((w, nv), dtype=torch.bool)
+    for lane, (t0, t1, _, hl) in enumerate(lanes):
+        a = torch.searchsorted(key, p * 2 ** 32 + (t0 - _I32_MIN))
+        b = torch.searchsorted(key, p * 2 ** 32 + (t1 - _I32_MIN),
+                               right=True)
+        cnt = (b - a).clamp(min=0)
+        keep = (cnt > 0) | (hl <= 0)
+        kept.append((v[keep], o[keep], cnt[keep], a[keep]))
+        touched[lane, v[keep]] = True
+    # F: where k > 0 an untouched vertex has degree 0 and leaves, which
+    # counts as a change of the first iteration
+    positive = torch.tensor([kl > 0 for _, _, kl, _ in lanes])[:, None]
+    cur = alive & (touched | ~positive)
+    changed = not torch.equal(cur, alive)
+    # B: Jacobi over the kept half-pairs alone; a vertex is updated where
+    # it holds one, and the lanes share the count
+    it = 0
+    while True:
+        new = cur.clone()
+        for lane, (_, _, kl, hl) in enumerate(lanes):
+            vl, ol, cl, _ = kept[lane]
+            act = torch.where(cur[lane, vl] & cur[lane, ol], cl, 0) >= hl
+            deg = torch.zeros(nv, dtype=torch.long).index_add_(0, vl,
+                                                               act.long())
+            new[lane] &= ~(touched[lane] & (deg < kl))
+        changed |= not torch.equal(new, cur)
+        cur, it = new, it + 1
+        if not changed:
+            break
+        changed = False
+    # C: as wave_peel.cu's
+    los, his, nes = [], [], []
+    e0 = int(poff[-1])
+    to = t[e0:]
+    for lane, (t0, t1, _, _) in enumerate(lanes):
+        vl, ol, cl, al = kept[lane]
+        live = (cl > 0) & (vl < ol) & cur[lane, vl] & cur[lane, ol]
+        first, last = t[al[live]], t[al[live] + cl[live] - 1]
+        orph = (to >= t0) & (to <= t1) & cur[lane, src[e0:]] & \
+            cur[lane, dst[e0:]]
+        nes.append(int(cl[live].sum()) + int(orph.sum()))
+        los.append(min([_I32_MAX] + first.tolist() + to[orph].tolist()))
+        his.append(max([_I32_MIN] + last.tolist() + to[orph].tolist()))
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)   # noqa: E731
+    return twave.StepResult(cur, twave.pack_alive_u32(cur, num_vertices=nv),
+                            i32(los), i32(his), i32(nes), i32(it))
+
+
+_MODELS = {"wave_peel": _model_wave_peel,
+           "wave_peel_global": _model_wave_peel_global}
+
+
 def _jax_steps(g, caps, nv, w_tile, alive, ts, te, k, h):
     jtel = g.device_tel(**caps)
     jargs = tuple(jnp.asarray(x) for x in (alive, ts, te, k, h))
@@ -333,9 +401,10 @@ def _jax_steps(g, caps, nv, w_tile, alive, ts, te, k, h):
                                     w_tile=w_tile)(*jargs))
 
 
-def _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, ctx):
+def _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, ctx,
+                model=_model_wave_peel):
     tel = _port_tel(g, caps)
-    got = _model_wave_peel(tel, nv, torch.from_numpy(alive), ts, te, k, h)
+    got = model(tel, nv, torch.from_numpy(alive), ts, te, k, h)
     for want, name in zip(_jax_steps(g, caps, nv, w_tile, alive, ts, te, k,
                                      h), ("composite", "interpret kernel")):
         _assert_steps_equal(got, want, f"model vs jax {name}, {ctx}")
@@ -347,14 +416,31 @@ def test_wave_peel_model_matches_jax(seed, padded):
     _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, seed)
 
 
+@pytest.mark.parametrize("seed,padded", _SWEEP)
+def test_wave_peel_global_model_matches_jax(seed, padded):
+    """The global-memory tier's decomposition: untouched vertices leave
+    before the loop, and the change counts for its first iteration."""
+    g, caps, nv, w_tile, alive, ts, te, k, h = _case(seed, padded)
+    _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, seed,
+                model=_model_wave_peel_global)
+
+
 @pytest.mark.parametrize("h_all", [0, 3])
 @pytest.mark.parametrize("seed,padded", _SWEEP[::4])
-def test_wave_peel_model_h_extremes(seed, padded, h_all):
+def test_wave_peel_model_h_extremes(seed, padded, h_all,
+                                    model="wave_peel"):
     """h <= 0 keeps every pair active, dead or not; h = 3 drops pairs with
     1-2 window edges from the degrees but not from n_edges."""
     g, caps, nv, w_tile, alive, ts, te, k, _ = _case(seed, padded)
     h = np.full(ts.shape, h_all, np.int32)
-    _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, (seed, h_all))
+    _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, (seed, h_all),
+                model=_MODELS[model])
+
+
+@pytest.mark.parametrize("h_all", [0, 3])
+@pytest.mark.parametrize("seed,padded", _SWEEP[::4])
+def test_wave_peel_global_model_h_extremes(seed, padded, h_all):
+    test_wave_peel_model_h_extremes(seed, padded, h_all, "wave_peel_global")
 
 
 def _hub_case(seed, hub_edges):
@@ -380,7 +466,8 @@ def _hub_case(seed, hub_edges):
 
 
 @pytest.mark.parametrize("padded", [False, True])
-def test_wave_peel_model_hub_pair_and_empty_windows(padded):
+def test_wave_peel_model_hub_pair_and_empty_windows(padded,
+                                                    model="wave_peel"):
     g, v, alive, ts, te, k, h = _hub_case(7, 4000)
     assert g.num_edges > 4000
     caps, nv = {}, v
@@ -390,17 +477,32 @@ def test_wave_peel_model_hub_pair_and_empty_windows(padded):
                     pair_capacity=pow2_capacity(g.num_pairs),
                     vertex_capacity=nv)
         alive = np.pad(alive, [(0, 0), (0, nv - v)], constant_values=True)
-    _hold_model(g, caps, nv, 8, alive, ts, te, k, h, f"hub padded={padded}")
+    _hold_model(g, caps, nv, 8, alive, ts, te, k, h, f"hub padded={padded}",
+                model=_MODELS[model])
 
 
-def test_wave_peel_model_counts_padding_edges_in_their_window():
+@pytest.mark.parametrize("padded", [False, True])
+def test_wave_peel_global_model_hub_pair_and_empty_windows(padded):
+    test_wave_peel_model_hub_pair_and_empty_windows(padded,
+                                                    "wave_peel_global")
+
+
+def test_wave_peel_model_counts_padding_edges_in_their_window(
+        model="wave_peel"):
     """A lane whose window starts at int32 min holds the capacity padding's
     sentinel edges: the composite counts them (between vertex 0 and
     itself) in n_edges and the TTI, so the kernel's orphan pass does."""
     g, caps, nv, w_tile, alive, ts, te, k, h = _case(2001, True)
     ts[0], te[0], alive[0, 0] = _I32_MIN, _I32_MAX, True
     k[0] = 0
-    _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, "sentinel window")
+    _hold_model(g, caps, nv, w_tile, alive, ts, te, k, h, "sentinel window",
+                model=_MODELS[model])
+
+
+def test_wave_peel_global_model_counts_padding_edges_in_their_window():
+    """The same lane, with k = 0, through the global tier's model."""
+    test_wave_peel_model_counts_padding_edges_in_their_window(
+        "wave_peel_global")
 
 
 def _model_segsum(values, seg, s, tile, threads=256):
