@@ -3773,8 +3773,7 @@ def kernel_dryrun_bytes(kernels: list) -> None:
                                 meta(e, dtype=i32), meta(e, dtype=i32),
                                 meta(p, dtype=i32), meta(p, dtype=i32),
                                 meta(sh["HP"], dtype=i32),
-                                meta(sh["HP"], dtype=i32),
-                                meta(e, dtype=i32))
+                                meta(sh["HP"], dtype=i32))
                 make_fused_wave_step(tel, v)(meta(w, v, dtype=torch.bool),
                                              0, 0, 0, 0)
             elif k["name"] == "segdeg":

@@ -680,8 +680,8 @@ class ShardedWavePipeline(WavePipeline):
         if wave % L:
             raise ValueError(
                 f"wave={wave} not a multiple of lane shards {L}")
-        super().__init__(None, num_vertices, None, None, wave, depth,
-                         step_fn=step_fn, device=mesh.device)
+        super().__init__(step_fn, num_vertices, wave, depth,
+                         device=mesh.device)
         self.mesh = mesh
         self.lane_shards = L
         self.model_shards = m

@@ -44,11 +44,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import trace
-from repro_torch.core.graph import DeviceTEL
 from repro_torch.core.results import CoreResult, QueryStats
 from repro_torch.core.scheduler import QueryState, RowCursor
-from repro_torch.core.wave import (StepResult, make_wave_step_fn,
-                                   packed_width)
+from repro_torch.core.wave import StepResult, packed_width
 
 
 class _Slot:
@@ -94,23 +92,14 @@ class WavePipeline:
     ``TCQEngine.query(mode="wave")``.
     """
 
-    def __init__(self, tel: DeviceTEL, num_vertices: int,
-                 seg_pair, seg_vert, wave: int, depth: int = 2,
-                 step_fn=None, device=None):
-        self.tel = tel
+    def __init__(self, step_fn, num_vertices: int, wave: int,
+                 depth: int = 2, *, device):
         self.num_vertices = num_vertices
-        self.seg_pair = seg_pair
-        self.seg_vert = seg_vert
         self.wave = wave
         self.depth = max(1, int(depth))
-        self.device = tel.t.device if device is None else torch.device(device)
-        # the device step: a prebuilt in-place ``make_wave_step_fn``
-        # closure (the engine pins one per windowed TEL), else the default
-        # dispatch for the TEL's device
-        if step_fn is None:
-            step_fn = make_wave_step_fn(tel, num_vertices,
-                                        seg_pair=seg_pair, seg_vert=seg_vert,
-                                        donate=True)
+        self.device = torch.device(device)
+        # the device step: a prebuilt ``make_wave_step_fn`` closure (the
+        # engine pins one per windowed TEL), in place unless it is a ladder
         self._step = step_fn
 
     # ------------------------------------------------- subclass seams

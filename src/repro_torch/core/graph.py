@@ -160,7 +160,6 @@ class DeviceTEL(NamedTuple):
     pair_v: torch.Tensor     # [P] int32
     hp_src: torch.Tensor     # [2P] int32, sorted ascending (vertex of incidence)
     hp_pair: torch.Tensor    # [2P] int32 (pair of incidence)
-    time_perm: torch.Tensor  # [E] int32: argsort(t), timeline order
 
     @property
     def num_edges(self) -> int:
@@ -388,17 +387,15 @@ class TemporalGraph:
         hp_pair = np.concatenate(
             [np.arange(p, dtype=np.int32), np.arange(p, dtype=np.int32)])
         order = np.argsort(hp_src, kind="stable")
-        t_pad = pad(self.t, e_cap, _I32_MIN)
         return {
             "src": pad(self.src, e_cap, 0),
             "dst": pad(self.dst, e_cap, 0),
-            "t": t_pad,
+            "t": pad(self.t, e_cap, _I32_MIN),
             "pair_id": pad(self.pair_id, e_cap, p_cap),
             "pair_u": pad(self.pair_u, p_cap, 0),
             "pair_v": pad(self.pair_v, p_cap, 0),
             "hp_src": pad(hp_src[order].astype(np.int32), 2 * p_cap, v_cap),
             "hp_pair": pad(hp_pair[order].astype(np.int32), 2 * p_cap, 0),
-            "time_perm": np.argsort(t_pad, kind="stable").astype(np.int32),
         }
 
     def device_tel(self, *, edge_capacity: Optional[int] = None,
@@ -416,8 +413,9 @@ class TemporalGraph:
                             for k in DeviceTEL._fields})
 
     def memory_bytes(self) -> int:
-        """ArrayTEL footprint (paper Table 5 analogue)."""
-        per_edge = 4 * 4 + 4  # src,dst,t,pair_id + time_perm
+        """ArrayTEL footprint (paper Table 5 analogue): the bytes of the
+        exact :meth:`device_tel`."""
+        per_edge = 4 * 4  # src, dst, t, pair_id
         per_pair = 4 * 2 + 4 * 2 * 2  # pair_u/v + half pairs (src,pair)x2
         return self.num_edges * per_edge + self.num_pairs * per_pair
 

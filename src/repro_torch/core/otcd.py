@@ -62,7 +62,6 @@ from repro_torch.core.scheduler import (QueryState, autotune_wave,
                                         choose_combine)
 from repro_torch.core.tcd import TCDResult, tcd
 from repro_torch.core.wave import ResilienceConfig, make_wave_step_fn
-from repro_torch.kernels.segdeg.ops import make_banded_segsum
 from repro_torch.launch.mesh import Mesh
 
 _I32_MIN = np.iinfo(np.int32).min
@@ -87,8 +86,6 @@ class WindowTEL(NamedTuple):
     """One window-truncated TEL plus everything needed to peel it."""
 
     tel: DeviceTEL
-    seg_pair: object         # edge->pair segsum closure for this TEL
-    seg_vert: object         # halfpair->vertex segsum closure
     num_vertices: int        # device vertex width (capacity, >= live V)
     window_edges: int        # live (non-sentinel) edges inside the window
     step_fn: object = None   # pinned wave step (make_wave_step_fn closure)
@@ -415,7 +412,7 @@ class TCQEngine:
         ep = self.epoch if epoch is None else int(epoch)
         if self._edge_sharded and not pool:
             tel, v_cap, e = self._whole_window(g, ep, Ts, Te, self.device)
-            return WindowTEL(tel, None, None, v_cap, e)
+            return WindowTEL(tel, v_cap, e)
         key = (ep, int(Ts), int(Te))
         hit = self._win_cache.get(key)
         if hit is not None:
@@ -429,7 +426,7 @@ class TCQEngine:
                 host = (self._whole_window(g, ep, Ts, Te,
                                            torch.device("cpu"))[0]
                         if self._resilience is not None else None)
-                out = WindowTEL(None, None, None, self._v_cap, e,
+                out = WindowTEL(None, self._v_cap, e,
                                 self._sharded_step(
                                     lambda: self._shard_arrays(g, ep, Ts,
                                                                Te, e),
@@ -437,19 +434,15 @@ class TCQEngine:
             else:
                 tel, v_cap, e = self._whole_window(g, ep, Ts, Te,
                                                    self.device)
-                seg_pair = make_banded_segsum(int(tel.pair_u.shape[0]),
-                                              tel.pair_id)
-                seg_vert = make_banded_segsum(v_cap, tel.hp_src)
                 if self.mesh is not None:
                     step = self._sharded_step(
                         lambda: self._shard_arrays(g, ep, Ts, Te, e), tel)
                 else:
-                    step = make_wave_step_fn(tel, v_cap, seg_pair=seg_pair,
-                                             seg_vert=seg_vert,
+                    step = make_wave_step_fn(tel, v_cap,
                                              use_kernel=self._use_kernel,
                                              donate=self._resilience is None,
                                              resilience=self._resilience)
-                out = WindowTEL(tel, seg_pair, seg_vert, v_cap, e, step)
+                out = WindowTEL(tel, v_cap, e, step)
         if len(self._win_cache) >= _WINDOW_CACHE_MAX:
             self._win_cache.popitem(last=False)     # evict least-recent
             self._win_evictions += 1
@@ -477,14 +470,12 @@ class TCQEngine:
                                         "hp_pair")),
                             self._pair_cap, self._v_cap)
         pad = pow2_capacity(e) - e
-        t_w = np.concatenate([g.t[idx], np.full(pad, _I32_MIN, np.int32)])
         cols = {
             "src": np.concatenate([g.src[idx], np.zeros(pad, np.int32)]),
             "dst": np.concatenate([g.dst[idx], np.zeros(pad, np.int32)]),
-            "t": t_w,
+            "t": np.concatenate([g.t[idx], np.full(pad, _I32_MIN, np.int32)]),
             "pair_id": np.concatenate(
                 [g.pair_id[idx], np.full(pad, aux.pair_cap, np.int32)]),
-            "time_perm": np.argsort(t_w, kind="stable").astype(np.int32),
         }
         dev = {k: torch.from_numpy(v).to(device) for k, v in cols.items()}
         tel = DeviceTEL(pair_u=aux.pair_u, pair_v=aux.pair_v,
@@ -517,8 +508,8 @@ class TCQEngine:
             if wave == "auto":
                 wave = autotune_wave(wt.num_vertices, wt.window_edges,
                                      num_queries=num_queries, depth=depth)
-            pipe = WavePipeline(wt.tel, wt.num_vertices, wt.seg_pair,
-                                wt.seg_vert, wave, depth, step_fn=wt.step_fn)
+            pipe = WavePipeline(wt.step_fn, wt.num_vertices, wave, depth,
+                                device=wt.tel.t.device)
             return pipe, wt, wave
         L = self._lane_shards
         if wave == "auto":

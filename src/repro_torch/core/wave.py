@@ -80,13 +80,6 @@ def make_segsum_fns(graph: TemporalGraph):
             make_banded_segsum(graph.num_vertices))
 
 
-def wave_edge_activity(tel: DeviceTEL, alive: torch.Tensor, ts, te
-                       ) -> torch.Tensor:
-    """alive: [Q, V]; ts/te: [Q].  Returns [Q, E] bool edge activity."""
-    win = (tel.t[None, :] >= ts[:, None]) & (tel.t[None, :] <= te[:, None])
-    return win & alive[:, tel.src] & alive[:, tel.dst]
-
-
 def wave_degrees_from_ea(tel: DeviceTEL, ea: torch.Tensor, h,
                          *, num_vertices: int, seg_pair: Callable,
                          seg_vert: Callable) -> torch.Tensor:
@@ -224,6 +217,15 @@ def make_composite_step(tel: DeviceTEL, num_vertices: int, *,
 
     step.backend = "composite"
     return step
+
+
+def _segdeg_composite(tel: DeviceTEL, num_vertices: int, *, donate: bool):
+    """The composite over the segdeg closures of ``tel``'s ``pair_id`` and
+    ``hp_src``: the kernel on CUDA, never the plain segment sum there."""
+    return make_composite_step(
+        tel, num_vertices,
+        seg_pair=make_banded_segsum(tel.num_pairs, tel.pair_id),
+        seg_vert=make_banded_segsum(num_vertices, tel.hp_src), donate=donate)
 
 
 def make_oracle_step_fn(tel: DeviceTEL, num_vertices: int):
@@ -364,7 +366,6 @@ class DegradationLadder:
     """
 
     def __init__(self, tel: DeviceTEL, num_vertices: int, *,
-                 seg_pair=None, seg_vert=None,
                  use_kernel: Optional[bool] = False,
                  config: Optional[ResilienceConfig] = None):
         self.config = config or ResilienceConfig()
@@ -373,10 +374,6 @@ class DegradationLadder:
         self.rung = 0
         self.demotes = _demotes(tel)
         self._rng = np.random.default_rng(self.config.seed)
-        if seg_pair is None:
-            seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
-        if seg_vert is None:
-            seg_vert = make_banded_segsum(num_vertices, tel.hp_src)
         from repro_torch.kernels.wave_peel import ops as peel
 
         rungs = []
@@ -385,9 +382,8 @@ class DegradationLadder:
             rungs.append((tier, peel.TIERS[tier](tel, num_vertices,
                                                  donate=False)))
         if self.demotes or not rungs:
-            rungs.append(("composite", make_composite_step(
-                tel, num_vertices, seg_pair=seg_pair, seg_vert=seg_vert,
-                donate=False)))
+            rungs.append(("composite", _segdeg_composite(tel, num_vertices,
+                                                         donate=False)))
         self._truth = make_oracle_step_fn(tel, num_vertices)  # unwrapped
         if self.demotes:
             rungs.append(("oracle", self._truth))
@@ -465,19 +461,18 @@ class DegradationLadder:
 
 
 def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
-                      seg_pair=None, seg_vert=None,
                       use_kernel=None, donate: bool = False,
                       resilience: Optional[ResilienceConfig] = None):
     """Build the device step for one TEL: ``step(alive, ts, te, k, h) ->
     StepResult`` with a ``.backend`` attribute.
 
     use_kernel=True takes the wave_peel kernel's tier that fits V, False
-    the composite lowering over ``seg_pair``/``seg_vert`` (by default the
-    segdeg closures: the kernel on CUDA, never the plain segment sum
-    there); None applies the capacity rule once, here, by V and the
-    device alone (``wave_peel.ops.kernel_tier``): on CUDA (or ``meta``)
-    the shared-memory tier where V fits it (``wave_peel.ops.fits``), the
-    global-memory tier above that; the composite on the CPU.
+    the composite lowering over the segdeg closures (the kernel on CUDA,
+    never the plain segment sum there); None applies the capacity rule
+    once, here, by V and the device alone (``wave_peel.ops.kernel_tier``):
+    on CUDA (or ``meta``) the shared-memory tier where V fits it
+    (``wave_peel.ops.fits``), the global-memory tier above that; the
+    composite on the CPU.
     ``.backend`` says which was built (``"fused"``, ``"fused_global"`` or
     ``"composite"``).  On CPU tensors every choice runs plain PyTorch.
     ``donate=True`` peels the caller's ``alive`` buffer in place (the
@@ -496,18 +491,12 @@ def make_wave_step_fn(tel: DeviceTEL, num_vertices: int, *,
     from repro_torch.kernels.wave_peel import ops as peel
 
     if resilience is not None:
-        return DegradationLadder(tel, num_vertices, seg_pair=seg_pair,
-                                 seg_vert=seg_vert, use_kernel=use_kernel,
+        return DegradationLadder(tel, num_vertices, use_kernel=use_kernel,
                                  config=resilience)
     tier = peel.kernel_tier(use_kernel, num_vertices, tel.t.device)
     if tier is not None:
         return peel.TIERS[tier](tel, num_vertices, donate=donate)
-    if seg_pair is None:
-        seg_pair = make_banded_segsum(tel.num_pairs, tel.pair_id)
-    if seg_vert is None:
-        seg_vert = make_banded_segsum(num_vertices, tel.hp_src)
-    return make_composite_step(tel, num_vertices, seg_pair=seg_pair,
-                               seg_vert=seg_vert, donate=donate)
+    return _segdeg_composite(tel, num_vertices, donate=donate)
 
 
 def tcd_wave(tel: DeviceTEL, alive: torch.Tensor, ts, te, k, h,

@@ -209,7 +209,7 @@ def test_wave_peel_meta_rule_charges_the_dense_count():
         return torch.empty((n,), dtype=torch.int32, device="meta")
 
     tel = DeviceTEL(meta(e), meta(e), meta(e), meta(e), meta(p), meta(p),
-                    meta(2 * p), meta(2 * p), meta(e))
+                    meta(2 * p), meta(2 * p))
     step = make_fused_wave_step(tel, v)
     launches = wave_peel.launches
     alive = torch.empty((w, v), dtype=torch.bool, device="meta")

@@ -73,8 +73,9 @@ def references():
     recovered and drained: {"jax": {id: digest}, kill: {id: digest}}."""
     g = W.wal_graph()
     ops = W.wal_ops(g)
+    jg = J.TemporalGraph.from_state(g.state_dict())
     jax_drain = W.ticket_digests(W.drive_tape(
-        J.TCQService(g, use_kernel=False), ops))
+        J.TCQService(jg, use_kernel=False), ops))
     pg = P.TemporalGraph.from_state(g.state_dict())
     refs = {"jax": jax_drain}
     tmp = tempfile.mkdtemp(prefix="tcq-wal-unsharded-")
