@@ -42,8 +42,9 @@ class QueryStats:
     shared, so the device-side counters (device_steps, host_syncs,
     bytes_synced, peel_iters, lane_refills, occupancy, wall_time_s)
     describe the whole batch and are reported identically on every
-    member query; schedule counters (cells_*, pruned_*, duplicates) and
-    the result decoding's (decode_words*) remain query-local.
+    member query; schedule counters (cells_*, pruned_*, duplicates), the
+    row runs the pruning rules cost (rule_*) and the result decoding's
+    (decode_words*) remain query-local.
     """
 
     n_timestamps: int = 0
@@ -61,6 +62,8 @@ class QueryStats:
     pruned_pou: int = 0
     pruned_pol: int = 0
     pruned_empty: int = 0
+    rule_rows: int = 0            # rows Rules 2 and 3 spanned
+    rule_runs: int = 0            # row runs those rows were pruned in
     device_steps: int = 0
     host_syncs: int = 0           # blocking device->host sync points
     bytes_synced: int = 0         # total device->host result payload

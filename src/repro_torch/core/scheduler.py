@@ -3,8 +3,8 @@
 The wave engine (`engine.WavePipeline`) is a *lane pool*: a persistent
 [W, V] device buffer whose rows each peel one schedule cell per fused
 step.  Everything the pool needs to know about *which* cell a lane should
-peel next is per-query bookkeeping — row cursors, the IntervalSet pruning
-state of Rules 1–3, the empty-cell staircase, warm-start rows (Theorem 1)
+peel next is per-query bookkeeping — row cursors, the pruning state of
+Rules 1–3, the empty-cell staircase, warm-start rows (Theorem 1)
 and TTI dedup (Property 2).  This module owns that bookkeeping:
 
 * :class:`QueryState` — one in-flight TCQ query.  The pipeline calls
@@ -14,6 +14,10 @@ and TTI dedup (Property 2).  This module owns that bookkeeping:
   dedup state, a lane pool serving many QueryStates returns *exactly*
   the result set of running each query alone — cross-query packing only
   changes which lanes cells ride in, never which cores exist.
+
+* :class:`PrunedRows` — the cells Rules 1–3 pruned, kept as runs of
+  consecutive rows that share one interval set, so a rule costs one set
+  operation per run of its row range, not one per row.
 
 * :class:`EmptyStaircase` — the incremental replacement for the
   O(|empty_marks|)-per-call ``empty_bound`` scan: empty cell (i, j)
@@ -37,7 +41,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import trace
-from repro_torch.core.intervals import IntervalSet
 from repro_torch.core.results import CoreResult, QueryStats
 
 
@@ -81,6 +84,110 @@ class EmptyStaircase:
         return len(self._is)
 
 
+# -------------------------------------------------------------- pruned rows
+class PrunedRows:
+    """The cells of a query's schedule rows 0..n-1 that Rules 1–3 pruned.
+
+    Row r holds the cells (r, c), c >= r.  The rows are kept as runs of
+    consecutive rows that share one set: ``_starts`` holds each run's
+    first row, ascending from 0, and ``_sets`` its set, a tuple of the
+    bounds ``a0, e0, a1, e1, ...`` of its half-open column intervals
+    [a, e), strictly ascending, so no two intervals touch.  A bisection
+    of the bounds finds a column's interval.  Row r reads its run's set
+    from column r on, so an interval that starts at or before a row's
+    first cell is stored from column 0: the rows of a run then share it
+    whatever their first cells.  Sets are tuples, never changed in
+    place, so runs share them freely.
+
+    A rule covers one interval over a range of rows (:meth:`prune`): it
+    splits the runs at the range's ends, covers the interval once a run,
+    counts each run's newly covered cells for all its rows at once, and
+    merges neighbouring runs whose sets have become equal.  Its cost
+    follows the runs in the range, not the rows.
+    """
+
+    __slots__ = ("n", "_starts", "_sets")
+
+    def __init__(self, n: int):
+        self.n = int(n)
+        self._starts: List[int] = [0]
+        self._sets: List[tuple] = [()]
+
+    def highest_uncovered_leq(self, r: int, x: int) -> int:
+        """Largest column c with r <= c <= x that row r has not pruned,
+        or r - 1 when there is none."""
+        bounds = self._sets[bisect.bisect_right(self._starts, r) - 1]
+        k = bisect.bisect_right(bounds, x)
+        if k & 1:                       # x lies in [bounds[k-1], bounds[k])
+            x = bounds[k - 1] - 1
+        return x if x >= r else r - 1
+
+    def prune(self, p: int, q: int, lo: int, hi: int) -> Tuple[int, int]:
+        """Cover the columns [max(lo, r), hi] of each row r of p..q, where
+        lo <= p or lo >= q, and hi >= q.  Returns the cells newly covered,
+        summed over the rows, and the number of runs the range held."""
+        if p > q:
+            return 0, 0
+        starts, sets = self._starts, self._sets
+        k0 = self._split(p)
+        k1 = self._split(q + 1) if q + 1 < self.n else len(starts)
+        prefix = lo <= p
+        if prefix:
+            lo = 0
+        end = hi + 1
+        new = 0
+        for k in range(k0, k1):
+            s = starts[k]
+            e = starts[k + 1] - 1 if k + 1 < len(starts) else self.n - 1
+            bounds = sets[k]
+            # the intervals [lo, end) meets or touches: bounds[i:m]
+            i = bisect.bisect_left(bounds, lo)
+            m = bisect.bisect_right(bounds, end)
+            i -= i & 1
+            m += m & 1
+            if prefix:
+                # row r gains [r, hi]: over rows s..e, an arithmetic series
+                # less each covered column c in [s, hi], counted in the
+                # min(c, e) - s + 1 rows r <= c of the run
+                n_rows = e - s + 1
+                gain = n_rows * (hi + 1) - (s + e) * n_rows // 2
+                for t in range(i, m, 2):
+                    ca, cb = max(bounds[t], s), min(bounds[t + 1] - 1, hi)
+                    if ca > cb:
+                        continue
+                    mid = min(cb, e)
+                    if ca <= mid:
+                        gain -= (ca + mid - 2 * s + 2) * (mid - ca + 1) // 2
+                    if cb > e:
+                        gain -= (cb - max(ca, e + 1) + 1) * n_rows
+            else:
+                gain = end - lo
+                for t in range(i, m, 2):
+                    gain -= max(0, min(bounds[t + 1], end)
+                                - max(bounds[t], lo))
+                gain *= e - s + 1
+            if gain:
+                a = min(lo, bounds[i]) if i < m else lo
+                b = max(end, bounds[m - 1]) if i < m else end
+                sets[k] = bounds[:i] + (a, b) + bounds[m:]
+                new += gain
+        # merge each run the range held into an equal neighbour
+        for k in range(min(k1, len(starts) - 1), max(k0, 1) - 1, -1):
+            if sets[k] == sets[k - 1]:
+                del starts[k], sets[k]
+        return new, k1 - k0
+
+    def _split(self, x: int) -> int:
+        """Index of the run that starts at row x, splitting the run that
+        holds x there (both halves share its set)."""
+        k = bisect.bisect_right(self._starts, x) - 1
+        if self._starts[k] != x:
+            k += 1
+            self._starts.insert(k, x)
+            self._sets.insert(k, self._sets[k - 1])
+        return k
+
+
 # --------------------------------------------------------------- row cursor
 class RowCursor:
     """Cursor of one schedule row: cells (i, j) swept right-to-left."""
@@ -95,7 +202,7 @@ class RowCursor:
 class QueryState:
     """Schedule bookkeeping for one TCQ query served by the lane pool.
 
-    Owns the per-query pruning state (IntervalSets of Rules 1–3, the
+    Owns the per-query pruning state (the row runs of Rules 1–3, the
     empty-cell staircase), warm-start tracking (best completed row-initial
     core, Theorem 1), TTI dedup (Property 2) and the packed result rows.
     ``stats`` accumulates this query's own counters (cells evaluated,
@@ -129,7 +236,7 @@ class QueryState:
         # next assemble/retire instead of peeling them further
         self.cancelled = False
         self.idx_of = {int(t): i for i, t in enumerate(self.uts)}
-        self.pruned: Dict[int, IntervalSet] = defaultdict(IntervalSet)
+        self.pruned = PrunedRows(self.n)
         self.empty = EmptyStaircase()
         # (row, col, device [V] row) of the best completed row-initial core
         self.best_init: Optional[Tuple[int, int, object]] = None
@@ -206,8 +313,8 @@ class QueryState:
 
     def _advance(self, row: RowCursor) -> bool:
         """Move the cursor past pruned/empty cells; False once exhausted."""
-        j = self.pruned[row.i].highest_uncovered_leq(row.j)
-        if j is None or j < row.i or j <= self.empty.bound(row.i):
+        j = self.pruned.highest_uncovered_leq(row.i, row.j)
+        if j < row.i or j <= self.empty.bound(row.i):
             return False
         row.j = j
         return True
@@ -283,17 +390,22 @@ class QueryState:
             self.best_init = (i, j, alive_row())
         row.first = False
         if self.prune:
+            rows = self.pruned
             if b_idx < j:                        # Rule 1: PoR
                 stats.por_triggers += 1
-                stats.pruned_por += self.pruned[i].add(b_idx, j - 1)
+                stats.pruned_por += rows.prune(i, i, b_idx, j - 1)[0]
             if a_idx > i:                        # Rule 2: PoU
                 stats.pou_triggers += 1
-                for r2 in range(i + 1, a_idx + 1):
-                    stats.pruned_pou += self.pruned[r2].add(r2, j)
+                new, runs = rows.prune(i + 1, a_idx, i + 1, j)
+                stats.pruned_pou += new
+                stats.rule_rows += a_idx - i
+                stats.rule_runs += runs
             if a_idx > i and b_idx < j:          # Rule 3: PoL
                 stats.pol_triggers += 1
-                for r2 in range(a_idx + 1, b_idx + 1):
-                    stats.pruned_pol += self.pruned[r2].add(b_idx + 1, j)
+                new, runs = rows.prune(a_idx + 1, b_idx, b_idx + 1, j)
+                stats.pruned_pol += new
+                stats.rule_rows += b_idx - a_idx
+                stats.rule_runs += runs
             row.j = (b_idx - 1) if b_idx < j else j - 1
         else:
             row.j = j - 1
