@@ -55,8 +55,9 @@ class _Slot:
     ``lanes[li]`` holds the (QueryState, RowCursor) the lane is serving,
     or None when free; ``dirty`` marks lanes holding a stale (dead) mask.
     On CUDA, ``params`` stages the per-lane (ts, te, k, h) and ``host``
-    receives the step's (packed, [lo, hi, ne], iters) in pinned memory,
-    with ``event`` marking when those copies have landed.
+    receives the step's (packed, [lo, hi, ne, hp_kept], iters) in pinned
+    memory (the fourth row only from a step that counts it), with
+    ``event`` marking when those copies have landed.
     """
 
     __slots__ = ("buf", "lanes", "dirty", "inflight", "params", "host",
@@ -77,7 +78,7 @@ class _Slot:
                                   pin_memory=cuda)
         self.host = (torch.empty((wave, packed_width(num_vertices)),
                                  dtype=torch.int32, pin_memory=True),
-                     torch.empty((3, wave), dtype=torch.int32,
+                     torch.empty((4, wave), dtype=torch.int32,
                                  pin_memory=True),
                      torch.empty((), dtype=torch.int32, pin_memory=True)
                      ) if cuda else None
@@ -263,9 +264,11 @@ class WavePipeline:
             if cuda:
                 packed, scalars, iters = slot.host
                 packed.copy_(res.packed, non_blocking=True)
-                scalars.copy_(torch.stack(
-                    [res.tti_lo, res.tti_hi, res.n_edges]),
-                    non_blocking=True)
+                rows = [res.tti_lo, res.tti_hi, res.n_edges]
+                if res.hp_kept is not None:
+                    rows.append(res.hp_kept)
+                scalars[:len(rows)].copy_(torch.stack(rows),
+                                          non_blocking=True)
                 iters.copy_(res.iters, non_blocking=True)
                 slot.event.record()
             pool_stats.device_steps += 1
@@ -283,15 +286,25 @@ class WavePipeline:
                 if armed:
                     trace.end(sp)
                 packed, scalars, iters = (a.numpy().copy() for a in slot.host)
-                lo, hi, ne = scalars
+                lo, hi, ne, kept = scalars
             else:
                 packed, lo, hi, ne, iters = (a.numpy().copy() for a in (
                     res.packed, res.tti_lo, res.tti_hi, res.n_edges,
                     res.iters))
+                kept = (None if res.hp_kept is None
+                        else res.hp_kept.numpy().copy())
+            # the global tier's phase A, counted for each lane's query
+            kept_l = None if res.hp_kept is None else kept.tolist()
+            scanned = res.hp_scanned
+            if kept_l is not None and armed:
+                trace.count("wave.hp_scanned", W * scanned)
+                trace.count("wave.hp_kept", sum(kept_l))
             packed = packed.view("<u4")
             pool_stats.host_syncs += 1
             pool_stats.bytes_synced += (packed.nbytes + lo.nbytes + hi.nbytes
                                         + ne.nbytes + iters.nbytes)
+            if kept_l is not None:
+                pool_stats.bytes_synced += kept.nbytes
             pool_stats.peel_iters += int(iters)
             lo_l, hi_l, ne_l = lo.tolist(), hi.tolist(), ne.tolist()
             if armed:
@@ -306,6 +319,9 @@ class WavePipeline:
                     slot.lanes[li] = None
                     slot.dirty.add(li)
                     continue
+                if kept_l is not None:
+                    s.stats.hp_scanned += scanned
+                    s.stats.hp_kept += kept_l[li]
                 keep = s.retire(row, lo_l[li], hi_l[li], ne_l[li],
                                 packed[li], self._warm_row(res, packed, li))
                 if not keep:

@@ -226,16 +226,18 @@ class TemporalGraph:
         hi = np.maximum(u, v)
         if num_vertices is None:
             num_vertices = int(hi.max()) + 1 if hi.size else 0
-        # factorize pairs: sort by (lo, hi, t) then run-length encode
-        order = np.lexsort((t, hi, lo))
-        lo, hi, t = lo[order], hi[order], t[order]
         if lo.size:
-            new_pair = np.empty(lo.shape, dtype=bool)
-            new_pair[0] = True
-            new_pair[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
-            pair_id = np.cumsum(new_pair) - 1
-            pair_u = lo[new_pair]
-            pair_v = hi[new_pair]
+            # factorize pairs: one sort of the (lo, hi) keys gives the pair
+            # ids, then one sort of (pair_id, t) packed in 64 bits (t less
+            # int32 min fits 32) the canonical order; equal keys are equal
+            # edges, so the sort need not be stable
+            width = int(hi.max()) + 1
+            keys, pair_id = np.unique(lo * width + hi, return_inverse=True)
+            order = np.sort((pair_id << 32) | (t - _I32_MIN))
+            pair_id = order >> 32
+            t = (order & 0xFFFFFFFF) + _I32_MIN
+            pair_u, pair_v = keys // width, keys % width
+            lo, hi = pair_u[pair_id], pair_v[pair_id]
         else:
             pair_id = np.zeros(0, dtype=np.int64)
             pair_u = np.zeros(0, dtype=np.int64)

@@ -66,6 +66,13 @@ from repro_torch.launch.mesh import Mesh
 
 _I32_MIN = np.iinfo(np.int32).min
 _WINDOW_CACHE_MAX = 64
+# Device bytes the window-TEL LRU may pin (``WindowTEL.nbytes``).  An entry
+# pays only when a window repeats (a service's pools, serial queries); a
+# batch's union window never does, and at sx-stackoverflow's counts one
+# entry is ~1.2 GB.  2 GiB, 2.5% of an 80 GB card: 64 sx-mathoverflow
+# entries (~5 MB each), ~11 tcq-youtube ones (~181 MB), one of
+# sx-stackoverflow's, beside the graph and the global tier's scratch.
+_WINDOW_CACHE_BYTES = 2 << 30
 _EPOCH_AUX_MAX = 8          # snapshot pair-table LRU (epochs still in flight)
 
 
@@ -89,6 +96,7 @@ class WindowTEL(NamedTuple):
     num_vertices: int        # device vertex width (capacity, >= live V)
     window_edges: int        # live (non-sentinel) edges inside the window
     step_fn: object = None   # pinned wave step (make_wave_step_fn closure)
+    nbytes: int = 0          # device bytes the entry pins (_pinned_bytes)
 
 
 class _EpochAux(NamedTuple):
@@ -126,6 +134,10 @@ class TCQEngine:
     :meth:`resilience_events` reports: demotions on the CPU; on the card
     a kernel failure or a tripwire divergence, logged and raised (without
     it a kernel failure raises too).
+
+    The window-TEL LRU holds at most 64 entries and the device bytes
+    ``_WINDOW_CACHE_BYTES`` (2 GiB): the least recent entries go until
+    both hold, the newest always stays.
 
     ``num_vertices`` is the *device* vertex width (a capacity >= the live
     vertex count once the graph has grown); padded vertices have no
@@ -396,8 +408,9 @@ class TCQEngine:
 
         Edge arrays are padded to a power-of-two bucket with sentinel
         edges (t = int32 min, pair_id = pair capacity, ignored by every
-        degree path).  The cache is LRU and keyed by ``(epoch, Ts, Te)``;
-        queries pinned to an older epoch pass ``graph``/``epoch``
+        degree path).  The cache is LRU, keyed by ``(epoch, Ts, Te)`` and
+        bounded by its entries and by the device bytes they pin; queries
+        pinned to an older epoch pass ``graph``/``epoch``
         explicitly.  Each entry pins the wave step built for its TEL (the
         fused kernel's band tables follow the truncation's segment ids),
         or with ``resilience`` its degradation ladder, whose rungs never
@@ -443,11 +456,37 @@ class TCQEngine:
                                              donate=self._resilience is None,
                                              resilience=self._resilience)
                 out = WindowTEL(tel, v_cap, e, step)
-        if len(self._win_cache) >= _WINDOW_CACHE_MAX:
-            self._win_cache.popitem(last=False)     # evict least-recent
-            self._win_evictions += 1
+            out = out._replace(nbytes=self._pinned_bytes(out))
         self._win_cache[key] = out
+        # evict least-recent past the entry cap or the byte budget; the
+        # newest entry stays, whatever its size
+        while len(self._win_cache) > _WINDOW_CACHE_MAX or (
+                len(self._win_cache) > 1 and
+                self._win_bytes() > _WINDOW_CACHE_BYTES):
+            self._win_cache.popitem(last=False)
+            self._win_evictions += 1
         return out
+
+    def _pinned_bytes(self, wt: WindowTEL) -> int:
+        """Device bytes a window entry pins that nothing else holds: its
+        edge columns (none when they are the engine's whole TEL; the pair
+        tables are the epoch's, shared) and its step's band tables (the
+        kernels' ``poff``/``hoff``, the composite's segment offsets: [P + 1]
+        and [V + 1] int32 either way; none for the plain step on the
+        CPU)."""
+        tel, n = wt.tel, 0
+        if tel is not None and tel is not self._tel:
+            n += sum(getattr(tel, f).nbytes
+                     for f in ("src", "dst", "t", "pair_id"))
+        bands = getattr(wt.step_fn, "bands", None)
+        if bands is not None:
+            n += bands.poff.nbytes + bands.hoff.nbytes
+        elif tel is not None and tel.t.device.type == "cuda":
+            n += 4 * (tel.num_pairs + 1 + wt.num_vertices + 1)
+        return n
+
+    def _win_bytes(self) -> int:
+        return sum(w.nbytes for w in self._win_cache.values())
 
     def _whole_window(self, g: TemporalGraph, ep: int, Ts: int, Te: int,
                       device: torch.device) -> Tuple[DeviceTEL, int, int]:
@@ -525,8 +564,9 @@ class TCQEngine:
 
     # --------------------------------------------------------- observability
     def stats(self) -> Dict:
-        """The window-TEL LRU's hit/miss/eviction counters and, when
-        result caching is on, the core cache's (``CoreCache.stats``)."""
+        """The window-TEL LRU's hit/miss/eviction counters, its entries
+        and the device bytes they pin, and, when result caching is on, the
+        core cache's (``CoreCache.stats``)."""
         out = {
             "epoch": self.epoch,
             "device": str(self.device),
@@ -535,6 +575,7 @@ class TCQEngine:
                 "misses": self._win_misses,
                 "evictions": self._win_evictions,
                 "size": len(self._win_cache),
+                "bytes": self._win_bytes(),
             },
         }
         if self.core_cache is not None:

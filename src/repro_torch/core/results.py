@@ -43,8 +43,9 @@ class QueryStats:
     bytes_synced, peel_iters, lane_refills, occupancy, wall_time_s)
     describe the whole batch and are reported identically on every
     member query; schedule counters (cells_*, pruned_*, duplicates), the
-    row runs the pruning rules cost (rule_*) and the result decoding's
-    (decode_words*) remain query-local.
+    row runs the pruning rules cost (rule_*), the result decoding's
+    (decode_words*) and the half-pairs the global-memory tier's phase A
+    walked and kept in the query's lanes (hp_*) remain query-local.
     """
 
     n_timestamps: int = 0
@@ -64,6 +65,8 @@ class QueryStats:
     pruned_empty: int = 0
     rule_rows: int = 0            # rows Rules 2 and 3 spanned
     rule_runs: int = 0            # row runs those rows were pruned in
+    hp_scanned: int = 0           # half-pairs phase A walked for its lanes
+    hp_kept: int = 0              # of those, the ones its lanes kept
     device_steps: int = 0
     host_syncs: int = 0           # blocking device->host sync points
     bytes_synced: int = 0         # total device->host result payload

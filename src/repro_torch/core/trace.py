@@ -41,6 +41,15 @@ The spans of the port (parent in brackets):
 Sites on a per-step path read :func:`armed` once per pool into a local
 and call :func:`begin` / :func:`end` behind it; other sites use
 :func:`span`.
+
+Beside the spans the recorder keeps named counters, summed by
+:func:`count` while armed and read by :func:`counters`:
+
+* ``wave.hp_scanned`` — half-pairs the global-memory tier's phase A
+  walked: the step's lanes times the half-pairs of its TEL, each retired
+  step (``WavePipeline`` retire).
+* ``wave.hp_kept`` — of those, the ones some lane kept (a pair with an
+  edge in the lane's window, or every one where h <= 0).
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch.autograd.profiler as _profiler
 
@@ -56,6 +65,7 @@ CAP = 2_000_000
 
 _spans: List["Span"] = []
 _dropped = 0
+_counters: Dict[str, int] = {}
 _lock = threading.Lock()
 _roots = itertools.count()
 _local = threading.local()
@@ -152,9 +162,24 @@ def dropped() -> int:
     return _dropped
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while the recorder is armed; a
+    test of :func:`armed` and nothing else when it is not."""
+    if armed():
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter summed since the last :func:`clear`."""
+    return _counters
+
+
 def clear() -> None:
-    """Forget every span and the dropped count; call with no span open."""
+    """Forget every span, the dropped count and the counters; call with
+    no span open."""
     global _dropped
     with _lock:
         _spans.clear()
         _dropped = 0
+        _counters.clear()

@@ -26,7 +26,7 @@ PyTorch, the plain version both tiers are held to.  On CUDA tensors each
 runs its kernel or raises, with or without a :class:`ResilienceConfig`,
 which on the card only logs the failure (:class:`DegradationLadder`).  All
 of them are bit-identical to the JAX package's lowerings on every
-``StepResult`` field (tests/test_torch_wave.py).
+peel field of ``StepResult`` (:data:`PEEL_FIELDS`, tests/test_torch_wave.py).
 
 Packed mask words are int32 tensors holding the uint32 bit patterns
 (torch has little uint32 arithmetic); they are viewed as ``<u4`` at the
@@ -186,6 +186,15 @@ class StepResult(NamedTuple):
     tti_hi: torch.Tensor   # [W] int32 (I32_MIN when lane core is empty)
     n_edges: torch.Tensor  # [W] int32
     iters: torch.Tensor    # 0-d int32 — shared fixpoint iterations
+    # the global-memory tier's phase A, counted (None / 0 on every other
+    # lowering): half-pairs each lane kept, and the half-pairs it walked
+    # for each lane
+    hp_kept: Optional[torch.Tensor] = None     # [W] int32
+    hp_scanned: int = 0
+
+
+# the fields every lowering computes, bit for bit alike
+PEEL_FIELDS = StepResult._fields[:6]
 
 
 def make_composite_step(tel: DeviceTEL, num_vertices: int, *,

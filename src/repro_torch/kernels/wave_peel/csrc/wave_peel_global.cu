@@ -15,7 +15,8 @@
 //   alive(v)  &= deg(v) >= k
 // until no vertex of any lane changes; then n_edges, TTI lo/hi, the
 // LSB-first mask words and the iteration count, shared by the lanes as
-// the composite's is.
+// the composite's is; beside them, for each lane, how many half-pairs
+// phase A kept of the table it walked (the pass's useful share).
 //
 // Where the state lives.  A lane's mask (V/8 bytes) and degrees do not fit
 // a cluster's shared memory above that V, so they live in global memory,
@@ -153,7 +154,8 @@ __global__ void __launch_bounds__(kThreads, 2) wave_peel_global_kernel(
     int orphan_tmax, uint8_t* alive_all, int4* halves_all, int halves_cap,
     unsigned* mask_all, unsigned* touched_all, int* deg_all, int* flags,
     int num_words, int* __restrict__ lo_out, int* __restrict__ hi_out,
-    int* __restrict__ ne_out, int* __restrict__ it_out, int num_lanes) {
+    int* __restrict__ ne_out, int* __restrict__ it_out,
+    int* __restrict__ kept_out, int num_lanes) {
   cg::grid_group grid = cg::this_grid();
   // per lane: ts, te, k, h, kept count, and the kept counts' prefix
   extern __shared__ int s_dyn[];
@@ -190,6 +192,7 @@ __global__ void __launch_bounds__(kThreads, 2) wave_peel_global_kernel(
       lo_out[l] = INT_MAX;
       hi_out[l] = INT_MIN;
       ne_out[l] = 0;
+      kept_out[l] = 0;
     }
     if (tid < 2) flags[tid] = 0;
   }
@@ -276,6 +279,9 @@ __global__ void __launch_bounds__(kThreads, 2) wave_peel_global_kernel(
     for (int l = 0; l < W; ++l) s_koff[l + 1] = s_koff[l] + s_kept[l];
   }
   __syncthreads();
+  for (int l = tid; l < W; l += kThreads) {
+    if (s_kept[l]) atomicAdd(kept_out + l, s_kept[l]);
+  }
   const int kept_all = s_koff[W];
   const int rounds = (kept_all + kThreads - 1) / kThreads * kThreads;
 
@@ -452,7 +458,8 @@ __global__ void __launch_bounds__(kThreads, 2) wave_peel_global_kernel(
 // poff [P + 1] and hoff [V + 1] are the first edge of each pair band and the
 // first half-pair of each vertex.  Outputs: packed [W, num_words] int32
 // (uint32 bit patterns, the lanes' masks during the launch), lo/hi/ne/iters
-// [W] int32.  Launches on `stream`; returns the launch's CUDA error code.
+// [W] int32, and kept [W] int32: the half-pairs phase A kept for each lane.
+// Launches on `stream`; returns the launch's CUDA error code.
 extern "C" int wave_peel_global_launch(
     const void* ts, const void* te, const void* k, const void* h,
     const void* t, const void* src, const void* dst, int num_edges,
@@ -461,7 +468,7 @@ extern "C" int wave_peel_global_launch(
     int num_vertices, int orphan_tmin, int orphan_tmax, void* alive,
     void* halves, int halves_cap, void* packed, void* touched, void* deg,
     void* flags, int num_words, void* lo, void* hi, void* ne, void* iters,
-    int num_lanes, void* stream) {
+    void* kept, int num_lanes, void* stream) {
   if (num_lanes <= 0) return 0;
   const size_t smem = sizeof(int) * (6 * static_cast<size_t>(num_lanes) + 1);
   // the grid the card holds at once, kept for the last (device, W)
@@ -494,7 +501,7 @@ extern "C" int wave_peel_global_launch(
       const_cast<void**>(&hp_src), const_cast<void**>(&hp_pair),
       const_cast<void**>(&hoff), &num_vertices, &orphan_tmin, &orphan_tmax,
       &alive, &halves, &halves_cap, &packed, &touched, &deg, &flags,
-      &num_words, &lo, &hi, &ne, &iters, &num_lanes};
+      &num_words, &lo, &hi, &ne, &iters, &kept, &num_lanes};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(wave_peel_global_kernel),
       dim3(last_grid), dim3(kThreads), args, smem,

@@ -55,6 +55,7 @@ class Bands(NamedTuple):
     hoff: torch.Tensor   # [V + 1] int32: first half-pair of each vertex
     orphan_lo: int       # min / max t of the edges outside every band
     orphan_hi: int       # (INT_MAX / INT_MIN when there are none)
+    halfpairs: int = 0   # hoff[V]: the half-pairs of real vertices
 
 
 def fused_step_cost(num_edges: int, num_pairs: int, num_halfpairs: int,
@@ -260,7 +261,7 @@ def wave_peel(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts, te, k,
 
 wave_peel.launches = 0
 
-_GLOBAL_INT_ARGS = frozenset({7, 11, 15, 16, 17, 20, 25, 30})
+_GLOBAL_INT_ARGS = frozenset({7, 11, 15, 16, 17, 20, 25, 31})
 
 
 def wave_peel_global(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts,
@@ -268,28 +269,31 @@ def wave_peel_global(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts,
     """One cooperative launch over a CUDA TEL of any V (the global-memory
     tier): peels ``alive`` [W, V] bool in place.
 
-    Takes and returns what :func:`wave_peel` does; every lane's iters is
-    the lanes' shared count.  Its scratch (kept half-pairs, touched words,
-    two degree buffers) is allocated here for each call, so the caching
-    allocator reuses it.
+    Takes what :func:`wave_peel` does and returns its outputs and one
+    more, kept [W] int32: the half-pairs phase A kept for each lane of the
+    ``bands.halfpairs`` it walked; every lane's iters is the lanes' shared
+    count.  Its scratch (kept half-pairs, touched words, two degree
+    buffers) is allocated here for each call, so the caching allocator
+    reuses it.
     """
     w, v = alive.shape
     dev = alive.device
     words = -(-max(v, 1) // 32)
     packed = torch.empty((w, words), dtype=torch.int32, device=dev)
-    lo, hi, ne, iters = torch.empty((4, w), dtype=torch.int32, device=dev)
+    lo, hi, ne, iters, kept = torch.empty((5, w), dtype=torch.int32,
+                                          device=dev)
     if dev.type == "meta":
         charge_kernel("wave_peel_global", fused_step_cost(
             tel.t.shape[0], tel.num_pairs, tel.hp_src.shape[0], v,
             [0] * w)["bytes"])
-        return packed, lo, hi, ne, iters
+        return packed, lo, hi, ne, iters, kept
     nhp = tel.hp_src.shape[0]
     halves = torch.empty((w, nhp, 4), dtype=torch.int32, device=dev)
     touched = torch.empty((w, words), dtype=torch.int32, device=dev)
     deg = torch.empty((2, w, v), dtype=torch.int32, device=dev)
     flags = torch.empty(2, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    check(bind("wave_peel_global_launch", _GLOBAL_INT_ARGS, 32)(
+    check(bind("wave_peel_global_launch", _GLOBAL_INT_ARGS, 33)(
         ts.data_ptr(), te.data_ptr(), k.data_ptr(), h.data_ptr(),
         tel.t.data_ptr(), tel.src.data_ptr(), tel.dst.data_ptr(),
         tel.t.shape[0], tel.pair_u.data_ptr(), tel.pair_v.data_ptr(),
@@ -298,9 +302,9 @@ def wave_peel_global(tel: DeviceTEL, bands: Bands, alive: torch.Tensor, ts,
         bands.orphan_hi, alive.data_ptr(), halves.data_ptr(), nhp,
         packed.data_ptr(), touched.data_ptr(), deg.data_ptr(),
         flags.data_ptr(), words, lo.data_ptr(), hi.data_ptr(), ne.data_ptr(),
-        iters.data_ptr(), w, stream), "wave_peel_global")
+        iters.data_ptr(), kept.data_ptr(), w, stream), "wave_peel_global")
     wave_peel_global.launches += 1
-    return packed, lo, hi, ne, iters
+    return packed, lo, hi, ne, iters, kept
 
 
 wave_peel_global.launches = 0
@@ -365,14 +369,15 @@ def _check_tel(tel: DeviceTEL, num_vertices: int) -> None:
 
 
 def tel_bands(tel: DeviceTEL, num_vertices: int) -> Bands:
-    """The kernel's band tables of a TEL (one host read for the orphan
-    edges' time range)."""
+    """The kernel's band tables of a TEL (a host read of the tables' ends,
+    one more for the orphan edges' time range)."""
     poff = segment_offsets(tel.pair_id, tel.num_pairs)
     hoff = segment_offsets(tel.hp_src, num_vertices)
-    orphan = tel.t[int(poff[-1]):]
+    nreal, nh = torch.stack([poff[-1], hoff[-1]]).tolist()
+    orphan = tel.t[nreal:]
     lo, hi = (torch.stack([orphan.min(), orphan.max()]).tolist()
               if orphan.numel() else (_I32_MAX, _I32_MIN))
-    return Bands(poff, hoff, int(lo), int(hi))
+    return Bands(poff, hoff, int(lo), int(hi), int(nh))
 
 
 def _kernel_step(tel: DeviceTEL, num_vertices: int, launch, backend: str,
@@ -398,10 +403,13 @@ def _kernel_step(tel: DeviceTEL, num_vertices: int, launch, backend: str,
         w = alive.shape[0]
         out = alive if donate else \
             alive.clone(memory_format=torch.contiguous_format)
-        packed, lo, hi, ne, iters = launch(
+        packed, lo, hi, ne, iters, *kept = launch(
             tel, bands, out, lanes(ts, w, dev), lanes(te, w, dev),
             lanes(k, w, dev), lanes(h, w, dev))
-        return StepResult(out, packed, lo, hi, ne, iters.max())
+        if not kept:
+            return StepResult(out, packed, lo, hi, ne, iters.max())
+        return StepResult(out, packed, lo, hi, ne, iters.max(), kept[0],
+                          bands.halfpairs if bands is not None else 0)
 
     step.backend = backend
     step.bands = bands

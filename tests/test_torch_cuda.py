@@ -18,8 +18,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import (PHCIndex, TCQEngine,  # noqa: E402
                               TemporalGraph, iphc_query)
-from repro_torch.core.wave import (make_composite_step,  # noqa: E402
-                                   make_wave_step_fn)
+from repro_torch.core.wave import (PEEL_FIELDS,  # noqa: E402
+                                   make_composite_step, make_wave_step_fn)
 from repro_torch.graphs import planted_cores, powerlaw_temporal  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.segdeg import ops as segdeg  # noqa: E402
@@ -56,7 +56,8 @@ def _case(seed, capacity_padding, dev):
 
 
 def _assert_steps_equal(got, want, ctx):
-    for name, x, y in zip(got._fields, got, want):
+    for name in PEEL_FIELDS:
+        x, y = getattr(got, name), getattr(want, name)
         assert x.dtype == y.dtype and x.shape == y.shape, (name, ctx)
         assert torch.equal(x, y), (name, ctx)
 
@@ -74,8 +75,8 @@ def test_wave_peel_kernel_matches_plain_step(cuda, seed, padded):
     _assert_steps_equal(comp, plain, f"composite (segdeg) vs plain {seed}")
     tel_c, nv_c, args_c = _case(seed, padded, "cpu")
     cpu = make_composite_step(tel_c, nv_c)(*args_c)
-    _assert_steps_equal(type(fused)(*(x.cpu() for x in fused)), cpu,
-                        f"card vs CPU {seed}")
+    on_cpu = type(fused)(*(getattr(fused, f).cpu() for f in PEEL_FIELDS))
+    _assert_steps_equal(on_cpu, cpu, f"card vs CPU {seed}")
 
 
 @pytest.mark.parametrize("n,s,q", [(1, 1, 1), (100, 7, 3), (1000, 300, 17),
@@ -248,6 +249,75 @@ def test_global_tier_refuses_malformed_tels(cuda, bad):
         tel, match = tel._replace(t=t), "canonical layout"
     with pytest.raises(ValueError, match=match):
         peel.make_global_wave_step(tel, nv)
+
+
+def _host_kept(tel, nv, ts, te, h):
+    """For each lane, the half-pairs of real vertices whose pair has an
+    edge in the lane's window, or all of them where h <= 0."""
+    pid = tel.pair_id.cpu().numpy().astype(np.int64)
+    t = tel.t.cpu().numpy()
+    p = tel.num_pairs
+    hp = tel.hp_pair.cpu().numpy()[tel.hp_src.cpu().numpy() < nv]
+    out = []
+    for a, b, hh in zip(ts.tolist(), te.tolist(), h.tolist()):
+        has = np.zeros(p + 1, dtype=bool)
+        has[pid[(t >= a) & (t <= b)]] = True
+        out.append(hp.size if hh <= 0 else int(has[hp].sum()))
+    return out
+
+
+@pytest.mark.parametrize("h", [0, 1, 2])
+@pytest.mark.parametrize("seed,padded", [(1000, False), (1003, False),
+                                         (2001, True), (2004, True)])
+def test_global_tier_counts_the_half_pairs_it_keeps(cuda, seed, padded, h):
+    """``hp_kept`` is, lane by lane, the host's count of the half-pairs
+    whose pair has an edge in the lane's window (all of them where
+    h <= 0), ``hp_scanned`` the half-pairs of real vertices, and the
+    peel is the plain step's; the shared-memory kernel counts nothing."""
+    tel, nv, (alive, ts, te, k, _) = _case(seed, padded, cuda)
+    hh = torch.full_like(ts, h)
+    got = _global_step(tel, nv)(alive, ts, te, k, hh)
+    _assert_steps_equal(got, make_composite_step(tel, nv)(alive, ts, te, k,
+                                                          hh), (seed, h))
+    assert got.hp_kept.dtype == torch.int32
+    assert got.hp_kept.tolist() == _host_kept(tel, nv, ts, te, hh)
+    assert got.hp_scanned == int((tel.hp_src < nv).sum())
+    fused = make_wave_step_fn(tel, nv, use_kernel=True)(alive, ts, te, k, hh)
+    assert fused.hp_kept is None and fused.hp_scanned == 0
+
+
+def test_global_tier_counts_in_query_stats_and_the_recorder(cuda,
+                                                            monkeypatch):
+    """Above a lowered limit the engine's steps are the global tier: each
+    query's ``hp_scanned`` is its lanes' walks of the half-pair table, its
+    ``hp_kept`` at most that and above 0; armed, the recorder sums every
+    lane of every step; the cores are the CPU port's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import trace
+
+    g = _serve_graph()
+    monkeypatch.setattr(peel, "max_vertices", lambda: 8)
+    reqs = [{"k": 3, "ts": 20, "te": 90}, {"k": 2, "ts": 150, "te": 230},
+            {"k": 4, "ts": 60, "te": 200}]
+    eng = TCQEngine(g)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = eng.query_batch(reqs)
+    counts = dict(trace.counters())
+    trace.clear()
+    want = TCQEngine(g, device="cpu").query_batch(reqs)
+    nh = 2 * g.num_pairs
+    for a, b in zip(got, want):
+        assert _digest(a) == _digest(b)
+        st = a.stats
+        assert st.hp_scanned == nh * st.cells_evaluated > 0
+        assert 0 < st.hp_kept <= st.hp_scanned
+        assert b.stats.hp_scanned == b.stats.hp_kept == 0
+    steps = got[0].stats.device_steps
+    assert counts["wave.hp_scanned"] in {w * nh * steps
+                                         for w in (4, 8, 16, 32, 64)}
+    assert counts["wave.hp_kept"] == sum(r.stats.hp_kept for r in got)
 
 
 @pytest.mark.parametrize("q", [1, 3, 4, 5, 64])
@@ -811,7 +881,8 @@ def test_ladder_over_smem_limit_raises_on_card(cuda, monkeypatch,
     assert segdeg.banded_segsum.launches == peel.wave_peel.launches == 0
     want = make_composite_step(g.device_tel(device="cpu"), v)(
         *(torch.from_numpy(a) for a in args))
-    _assert_steps_equal(type(want)(*(x.cpu() for x in got)), want,
+    _assert_steps_equal(type(want)(*(getattr(got, f).cpu()
+                                      for f in PEEL_FIELDS)), want,
                         "ladder above the limit")
     assert step.events == []                # the tripwire held
 

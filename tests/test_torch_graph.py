@@ -61,6 +61,40 @@ def test_tel_arrays_match_reference(seed, padded, neg_t):
         np.testing.assert_array_equal(d.numpy(), a, err_msg=name)
 
 
+@pytest.mark.parametrize("case", ["int32 ends", "one pair", "dense",
+                                  "float ids", "one edge", "no edge"])
+def test_from_edges_matches_reference_at_the_extremes(case):
+    """The canonical order at the ends of the int32 ranges: ids up to
+    2^31 - 1, timestamps from int32 min + 1 to int32 max, many edges of
+    one pair at one time, self-loops among them; and the degenerate
+    inputs."""
+    rng = np.random.default_rng(5)
+    top, lo_t = 2**31 - 1, -2**31 + 1
+    if case == "int32 ends":
+        ids = np.array([0, 1, top - 1, top, 7, 2**30])
+        u, v = rng.choice(ids, 500), rng.choice(ids, 500)
+        t = rng.choice(np.array([lo_t, lo_t + 1, -1, 0, 1, top - 1, top]),
+                       500)
+    elif case == "one pair":
+        u = np.full(300, 4)
+        v = np.where(rng.random(300) < 0.9, 9, 4)
+        t = rng.integers(0, 3, 300)
+    elif case == "dense":
+        u, v = rng.integers(0, 6, 2000), rng.integers(0, 6, 2000)
+        t = rng.integers(-3, 4, 2000)
+    elif case == "float ids":
+        u, v = (rng.integers(0, 20, 100).astype(np.float64)
+                for _ in range(2))
+        t = rng.integers(1, 9, 100).astype(np.float64)
+    elif case == "one edge":
+        u, v, t = [3], [1], [lo_t]
+    else:
+        u, v, t = [2, 2], [2, 2], [5, 6]
+    jg = jgraph.TemporalGraph.from_edges(u, v, t)
+    tg = tgraph.TemporalGraph.from_edges(u, v, t)
+    _assert_graphs_equal(jg, tg)
+
+
 def test_memory_bytes_is_what_device_tel_ships():
     u, v, t = _edges(4)
     g = tgraph.TemporalGraph.from_edges(u, v, t, num_vertices=30)

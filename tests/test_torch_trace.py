@@ -242,3 +242,33 @@ def test_pool_wait_on_the_card():
     want = TCQEngine(g, device="cpu").query_batch(REQS)
     assert [d[0] for d in _digest(res)] == [d[0] for d in _digest(want)]
     assert np.isfinite([s.end - s.start for s in sp]).all()
+
+
+def test_counters_count_only_while_armed_and_clear_with_the_spans():
+    """``count`` adds nothing unarmed; armed, it sums by name; ``clear``
+    forgets the counters with the spans."""
+    trace.count("wave.hp_kept", 5)
+    assert trace.counters() == {}
+
+    def counted():
+        trace.count("wave.hp_kept", 5)
+        trace.count("wave.hp_kept", 2)
+        trace.count("wave.hp_scanned", 40)
+        with trace.span("pool.run"):
+            pass
+
+    _armed(counted)
+    assert trace.counters() == {"wave.hp_kept": 7, "wave.hp_scanned": 40}
+    trace.count("wave.hp_kept", 1)          # disarmed again
+    assert trace.counters()["wave.hp_kept"] == 7
+    trace.clear()
+    assert trace.counters() == {} and trace.spans() == []
+
+
+def test_composite_steps_count_nothing():
+    """The CPU's plain steps report no half-pair counts: armed or not,
+    no counter, and every query's hp_* stays 0."""
+    eng = TCQEngine(_graph(), device="cpu")
+    res = _armed(lambda: eng.query_batch(REQS))
+    assert trace.counters() == {}
+    assert all(r.stats.hp_scanned == r.stats.hp_kept == 0 for r in res)
